@@ -1,0 +1,96 @@
+"""Port parity: the plain rasterizer and the plain versions of both raster
+kernels against the JAX rasterizer and the Pallas kernels in interpret mode
+(atol 3e-6, rtol 1e-5: the JAX package's own cross-backend tolerance), with
+identical counters. The CUDA kernels against the plain versions are in
+test_torch_cuda_kernels.py."""
+import functools
+
+import jax
+import numpy as np
+import pytest
+
+from repro.core import make_camera, random_scene
+from repro.core.bitmask import compact_tiles, generate_bitmasks
+from repro.core.grouping import GridSpec as JGridSpec, bin_pairs, identify
+from repro.core.projection import project as jproject
+from repro.core.raster import rasterize as jrasterize
+from repro.kernels import ops as jops
+from repro.kernels.layout import pack_features as jpack
+from repro.kernels.raster_tile import raster_group_fused_kernel as pallas_fused
+from repro.kernels.raster_tile import raster_tile_kernel as pallas_tile
+from repro_torch.core.grouping import GridSpec
+from repro_torch.core.raster import rasterize
+from repro_torch.kernels import ops
+from repro_torch.kernels.raster_tile import (
+    raster_group_fused_kernel,
+    raster_tile_kernel,
+    raster_tile_plain,
+)
+from torch_parity import n, proj_to_torch, t, table_to_torch
+
+W = H = 96
+TOL = dict(atol=3e-6, rtol=1e-5)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(seed=1, gf=4, tcap=128):
+    scene = random_scene(jax.random.key(seed), 400, extent=3.0)
+    proj = jproject(scene, make_camera((0, 1.0, 4.5), (0, 0, 0), W, H))
+    jgrid = JGridSpec(W, H, 16, 16 * gf, span=4)
+    gtable = bin_pairs(identify(proj, jgrid, "group", "ellipse"), jgrid.num_groups, 256)
+    masks = generate_bitmasks(proj, gtable, jgrid, "ellipse")
+    ttable = compact_tiles(gtable, masks, jgrid, tcap)
+    return proj, jgrid, GridSpec(W, H, 16, 16 * gf, span=4), gtable, masks, ttable
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+def test_rasterize_matches_reference(early_exit):
+    proj, jgrid, grid, _, _, ttable = _tables()
+    bg = np.array([0.1, 0.2, 0.3], np.float32)
+    want = jrasterize(proj, ttable, jgrid, bg, chunk=32, early_exit=early_exit)
+    got = rasterize(proj_to_torch(proj), table_to_torch(ttable), grid, t(bg), chunk=32,
+                    early_exit=early_exit)
+    np.testing.assert_allclose(n(got.image), np.asarray(want.image), **TOL)
+    assert int(got.alpha_ops) == int(np.asarray(want.alpha_ops))
+    assert int(got.blend_ops) == int(np.asarray(want.blend_ops))
+    np.testing.assert_array_equal(n(got.processed), np.asarray(want.processed))
+
+
+@pytest.mark.parametrize("gf,tile_capacity", [(4, None), (2, None), (4, 9)])
+def test_plain_fused_raster_vs_pallas(gf, tile_capacity):
+    """tile_capacity=9 exercises the virtual FIFO clamp."""
+    proj, jgrid, grid, gtable, masks, _ = _tables(gf=gf)
+    feat = jpack(proj, gtable.gauss_idx, gtable.entry_valid)
+    origins = jops.group_origins(jgrid)
+    want, want_c = pallas_fused(feat, masks.masks, origins, 16, gf, chunk=128,
+                                interpret=True, tile_capacity=tile_capacity,
+                                with_stats=True)
+    got, got_c = raster_group_fused_kernel(
+        t(feat), t(np.asarray(masks.masks).view(np.int32)), ops.group_origins(grid), 16, gf,
+        chunk=128, tile_capacity=tile_capacity,
+    )
+    np.testing.assert_allclose(n(got), np.asarray(want), **TOL)
+    np.testing.assert_array_equal(n(got_c), np.asarray(want_c))
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+def test_plain_tile_raster_vs_pallas(early_exit):
+    proj, jgrid, grid, _, _, ttable = _tables()
+    feat = jpack(proj, ttable.gauss_idx, ttable.entry_valid)
+    origins = jops.tile_origins(jgrid)
+    want, want_c = pallas_tile(feat, origins, 16, chunk=64, interpret=True,
+                               early_exit=early_exit, with_stats=True)
+    got, got_c = raster_tile_kernel(t(feat), ops.tile_origins(grid), 16, chunk=64,
+                                    early_exit=early_exit)
+    np.testing.assert_allclose(n(got), np.asarray(want), **TOL)
+    np.testing.assert_array_equal(n(got_c), np.asarray(want_c))
+    np.testing.assert_array_equal(n(ops.tile_origins(grid)), np.asarray(origins))
+
+
+def test_plain_tile_raster_empty_tiles():
+    """Tiles with no entries give rgb 0 and transmittance 1."""
+    feat = np.zeros((3, 16, 128), np.float32)
+    out, counts = raster_tile_plain(t(feat), t(np.zeros((3, 2), np.float32)), 16, chunk=64)
+    assert (n(out)[:, :3] == 0).all() and (n(out)[:, 3] == 1).all()
+    assert (n(counts) == 0).all()
+
