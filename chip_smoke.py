@@ -13,16 +13,28 @@ line each:
                 main path's inputs (bitmask: 3 methods, bit-exact; raster:
                 max-abs <= 1e-4, counters within 1e-5 relative), with
                 CUDA-event times (median of 10 after a warm-up).
+     gsm      — the GSM entry point ops.sort_groups_bitonic on the main
+                frame's group lists (527 x 8192, rows permuted): keys and
+                payload bitwise equal to the plain network, keys bitwise
+                equal to torch.sort, live keys in the bin table's depth
+                order; then K = 16384 and 65536 (global-memory passes)
+                against the plain network. Kernel, plain and torch.sort +
+                gather times.
   3. render   — the main path: engine.open(scene, cfg).render(cam) in gstg
                 mode on the cuda backend, 1,026,000 gaussians at 1952x1088.
-                Launch counts are zeroed just before it and read just after.
+                Launch counts are zeroed just before each path (gsm, render,
+                batch, tile_baseline) and read just after.
      stages   — each of its six stages timed on its own (CUDA events).
+     batch    — the handle's batch and futures paths on four cameras near
+                the main one: render_batch lanes and four submits (one
+                dispatch at max_batch=4) bitwise equal to render(cam_i).
   4. parity   — the same camera on the reference backend on the card:
                 frontend counters equal, image within 1e-4.
   5. lossless — gstg against tile_baseline on the cuda backend (120,000
                 gaussians, 1952x1088, camera twice as far so that no list
                 is cut): bitwise-equal images.
-  6. kernels  — every ported kernel: launches, error, times, bound.
+  6. kernels  — every ported kernel: launches, error, times, bound,
+                library time (torch.sort + gather for the bitonic sort).
 
 The last line is {"ok": true, "device": {...}}; any failed check exits
 non-zero before it. Without CUDA, or without the repository beside this
@@ -44,6 +56,8 @@ ROOT = Path(__file__).resolve().parent
 WIDTH, HEIGHT = 1952, 1088
 MAIN_GAUSSIANS = 1_026_000
 LOSSLESS_GAUSSIANS = 120_000
+BATCH_AZIMUTHS_DEG = (0.0, -3.0, 3.0, 6.0)   # the batch phase's four cameras
+GSM_WIDE_K = (16384, 65536)                  # rows past one block's shared span
 CFG_KW = dict(
     mode="gstg", tile=16, group=64, boundary_group="ellipse", boundary_tile="ellipse",
     group_capacity=8192, tile_capacity=2048, span=6, chunk=32,
@@ -111,6 +125,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     from repro_torch.core.stages import get_backend
     from repro_torch.kernels import ops
     from repro_torch.kernels.bitmask_gen import KERNEL_METHODS, bitmask_kernel, bitmask_plain
+    from repro_torch.kernels.bitonic_sort import bitonic_sort_kernel, bitonic_sort_plain
     from repro_torch.kernels.layout import LANE, pack_features
     from repro_torch.kernels.raster_tile import (
         raster_group_fused_kernel,
@@ -260,6 +275,63 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     )
     del tfeat, ttable, feat
 
+    # -- gsm: the bitonic sort on the main frame's group lists -----------------
+    gvalid = gtable.entry_valid
+    table_keys = torch.where(gvalid, front.proj.depth[gtable.gauss_idx.long()],
+                             torch.full((), float("inf"), device=dev))
+    gen = torch.Generator(device=dev).manual_seed(12)
+    perm = torch.rand(table_keys.shape, generator=gen, device=dev).argsort(dim=1)
+    keys = table_keys.gather(1, perm)
+    payload = gtable.gauss_idx.to(torch.int32).gather(1, perm)
+    build.reset_launches()
+    sk, sv = ops.sort_groups_bitonic(keys, payload)
+    sync()
+    gsm_launches = dict(build.LAUNCHES)
+    payload_f = payload.to(torch.float32)
+    pk, pv = bitonic_sort_plain(keys, payload_f)
+    lib = torch.sort(keys, dim=-1)
+    sync()
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    same_plain = bool(torch.equal(bits(sk), bits(pk)) and torch.equal(sv, pv.to(torch.int32)))
+    same_lib = bool(torch.equal(bits(sk), bits(lib.values)))
+    live_order = bool(torch.equal(sk[gvalid], table_keys[gvalid]))
+    carried = bool(torch.equal(front.proj.depth[sv[gvalid].long()], sk[gvalid]))
+    Gs, Ks = keys.shape
+    ms = time_ms(lambda: bitonic_sort_kernel(keys, payload_f))
+    plain_ms = time_ms(lambda: bitonic_sort_plain(keys, payload_f))
+    library_ms = time_ms(lambda: torch.gather(payload_f, -1, torch.sort(keys, dim=-1).indices))
+    stages_n = Ks.bit_length() * (Ks.bit_length() - 1) // 2
+    wide = {}
+    for kw in GSM_WIDE_K:
+        rows = max(1, min(4, Gs * Ks // kw))
+        wk = keys.reshape(-1)[: rows * kw].reshape(rows, kw)
+        wv = payload_f.reshape(-1)[: rows * kw].reshape(rows, kw)
+        got = bitonic_sort_kernel(wk, wv)
+        want = bitonic_sort_plain(wk, wv)
+        sync()
+        wide[kw] = bool(torch.equal(bits(got[0]), bits(want[0]))
+                        and torch.equal(bits(got[1]), bits(want[1]))
+                        and torch.equal(bits(got[0]), bits(torch.sort(wk, dim=-1).values)))
+    emit({"phase": "gsm", "shape": [Gs, Ks], "live_entries": live, "launches": gsm_launches,
+          "bitwise_vs_plain": same_plain, "keys_bitwise_vs_torch_sort": same_lib,
+          "live_keys_in_table_order": live_order, "payload_carries_its_key": carried,
+          "wide_rows_bitwise_vs_plain": {str(k): v for k, v in wide.items()},
+          "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+          "compare_exchanges": stages_n * (Ks // 2) * Gs})
+    check(same_plain, "gsm: bitonic kernel differs from its plain version")
+    check(same_lib, "gsm: bitonic keys differ from torch.sort")
+    check(live_order and carried, "gsm: sorted keys leave the bin table's depth order")
+    for kw, ok in wide.items():
+        check(ok, f"gsm: bitonic kernel differs from its plain version at K = {kw}")
+    check(gsm_launches["bitonic_sort"] > 0, "gsm: bitonic_sort was not launched")
+    kernels["bitonic_sort"] = dict(
+        max_abs_err=float((sk - pk).abs().nan_to_num().max()), ms=ms, plain_ms=plain_ms,
+        nbytes=4 * Gs * Ks * 4, ops=stages_n * (Ks // 2) * Gs, library_ms=library_ms)
+    del keys, payload, payload_f, sk, sv, pk, pv, lib, table_keys, perm
+
     # -- 3. the main path ----------------------------------------------------
     with engine.open(scene, cfg, device=dev) as renderer:
         build.reset_launches()
@@ -315,6 +387,61 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
           "candidate_pairs": int(pairs.bin_id.numel())})
     del proj, pairs, table, masks, comp
 
+    # -- batch: render_batch and submit on four cameras near the main one ----
+    radius = math.hypot(spec.extent * 0.35, spec.extent * 1.5)
+    elev = math.atan2(spec.extent * 0.35, spec.extent * 1.5)
+    cams = [cam]                             # the main camera, then three beside it
+    for deg in BATCH_AZIMUTHS_DEG[1:]:
+        az = math.radians(deg)
+        eye = (radius * math.cos(elev) * math.sin(az), radius * math.sin(elev),
+               radius * math.cos(elev) * math.cos(az))
+        cams.append(make_camera(eye, (0, 0, 0), width, height, fov_x_deg=62.0))
+    with engine.open(scene, cfg, device=dev, max_batch=len(cams), max_wait=60.0) as handle:
+        singles = [handle.render(c) for c in cams]
+        sync()
+        build.reset_launches()
+        t = time.perf_counter()
+        batch = handle.render_batch(cams, pad_to=len(cams))
+        sync()
+        batch_ms = (time.perf_counter() - t) * 1e3
+        batch_launches = dict(build.LAUNCHES)
+        misses = handle.cache_info()["misses"]
+        build.reset_launches()
+        t = time.perf_counter()
+        futs = [handle.submit(c) for c in cams]
+        results = [f.result(timeout=300) for f in futs]
+        submit_ms = (time.perf_counter() - t) * 1e3
+        submit_launches = dict(build.LAUNCHES)
+        hstats = handle.stats()
+        misses_after = handle.cache_info()["misses"]
+    names = list(singles[0].stats.as_dict())
+    lane_equal, submit_equal = [], []
+    for i, one in enumerate(singles):
+        lane_stats = {k: int(getattr(batch.stats, k)[i]) for k in names}
+        lane_equal.append(bool(torch.equal(batch.image[i], one.image))
+                          and lane_stats == one.stats.as_dict())
+        sub_stats = {k: int(getattr(results[i].stats, k)) for k in names}
+        submit_equal.append(bool(torch.equal(results[i].image, batch.image[i].cpu()))
+                            and sub_stats == lane_stats
+                            and results[i].image.device.type == "cpu")
+    counters = {k: hstats[k] for k in ("submitted", "completed", "batches", "padded_lanes")}
+    emit({"phase": "batch", "gaussians": n_main, "width": width, "height": height,
+          "azimuths_deg": BATCH_AZIMUTHS_DEG,
+          "lane_overflow": [int(v) for v in batch.stats.overflow.tolist()],
+          "lanes_bitwise_vs_render": lane_equal, "submits_bitwise_vs_lanes": submit_equal,
+          "handle_counters": counters, "cache_misses_before_after_submits": [misses, misses_after],
+          "batch_ms": batch_ms, "submit_to_result_ms": submit_ms,
+          "batch_launches": batch_launches, "submit_launches": submit_launches})
+    check(all(lane_equal), f"batch: render_batch lanes differ from render: {lane_equal}")
+    check(all(submit_equal), f"batch: submit results differ from the lanes: {submit_equal}")
+    check(counters == {"submitted": 4, "completed": 4, "batches": 1, "padded_lanes": 0},
+          f"batch: handle counters {counters}")
+    check(misses_after == misses, "batch: the submits built a new renderer")
+    for k in ("bitmask_gen", "raster_group_fused"):
+        check(batch_launches[k] == len(cams) and submit_launches[k] == len(cams),
+              f"batch: kernel {k} launched {batch_launches[k]}/{submit_launches[k]} times")
+    del singles, batch, results
+
     # -- 4. cuda backend against the reference backend, on the card ----------
     ref = render(scene, cam, RenderConfig(backend="reference", **CFG_KW))
     ref_stats = ref.stats.as_dict()
@@ -365,23 +492,27 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
         "bitmask_gen": ("src/repro/kernels/bitmask_gen.py:74", "gstg"),
         "raster_group_fused": ("src/repro/kernels/raster_tile.py:229", "gstg"),
         "raster_tile": ("src/repro/kernels/raster_tile.py:175", "tile_baseline"),
+        "bitonic_sort": ("src/repro/kernels/bitonic_sort.py:57", "gsm"),
     }
     source = {"bitmask_gen": "src/repro_torch/csrc/bitmask_gen.cu",
               "raster_group_fused": "src/repro_torch/csrc/raster_tile.cu",
-              "raster_tile": "src/repro_torch/csrc/raster_tile.cu"}
+              "raster_tile": "src/repro_torch/csrc/raster_tile.cu",
+              "bitonic_sort": "src/repro_torch/csrc/bitonic_sort.cu"}
+    path_launches = {"gstg": main_launches, "tile_baseline": tile_launches,
+                     "gsm": gsm_launches}
     rows = []
     for name, k in kernels.items():
         t_bytes = k["nbytes"] / PEAK_BYTES * 1e3
         t_ops = k["ops"] / PEAK_FP32 * 1e3
         path = replaces[name][1]
-        launches = main_launches[name] if path == "gstg" else tile_launches[name]
+        launches = path_launches[path][name]
         rows.append({
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name][0], "path": path, "launches": launches,
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "library_ms": k.get("library_ms"),
         })
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -8,12 +8,14 @@ from repro_torch.core.gaussians import (
 )
 from repro_torch.core.grouping import GridSpec
 from repro_torch.core.pipeline import (
+    CameraBatch,
     FrontendResult,
     RenderConfig,
     RenderResult,
     RenderStats,
     render,
     render_backend,
+    render_batch,
     render_frontend,
 )
 from repro_torch.core.projection import Projected, project
@@ -29,12 +31,14 @@ __all__ = [
     "scene_like_paper",
     "scene_to_numpy",
     "GridSpec",
+    "CameraBatch",
     "FrontendResult",
     "RenderConfig",
     "RenderResult",
     "RenderStats",
     "render",
     "render_backend",
+    "render_batch",
     "render_frontend",
     "Projected",
     "project",

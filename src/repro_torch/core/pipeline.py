@@ -15,14 +15,19 @@ hand-written BGM and RM kernels). Three modes share the substrate:
     rasterization. Sorting keys = (gaussian, group) pairs only.
 
 Every mode returns the image plus RenderStats counters (int64 tensors).
-The scene-sharded frontend (``scene_shards > 1``) and the timed-stage mode
-(``timing=True``) of the JAX package are not ported yet and raise.
+``render_batch`` renders B cameras of one geometry lane by lane through
+``render`` and stacks them, so every lane is bitwise equal to a single
+render. The scene-sharded frontend (``scene_shards > 1``) and the
+timed-stage mode (``timing=True``) of the JAX package are not ported yet
+and raise.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.camera import Camera
@@ -30,7 +35,9 @@ from repro_torch.core.gaussians import GaussianScene
 from repro_torch.core.grouping import GridSpec, sort_op_count
 from repro_torch.core.projection import Projected, proj_valid_count
 from repro_torch.core.stages import Backend, get_backend
+from repro_torch.obs import get_registry
 from repro_torch.utils import wide_count_sum
+from repro_torch.utils.misc import not_ported
 
 MODES = ("gstg", "tile_baseline", "group_baseline")
 
@@ -80,6 +87,18 @@ class RenderStats:
 class RenderResult:
     image: torch.Tensor
     stats: RenderStats
+
+    def map(self, fn) -> "RenderResult":
+        """The result with ``fn`` applied to the image and every counter
+        (``lambda x: x[i]`` takes lane i of a batch, ``Tensor.cpu`` moves
+        it to the host)."""
+        return RenderResult(
+            image=fn(self.image),
+            stats=RenderStats(**{
+                f.name: fn(getattr(self.stats, f.name))
+                for f in dataclasses.fields(RenderStats)
+            }),
+        )
 
 
 @dataclasses.dataclass
@@ -243,3 +262,186 @@ def _run_backend(backend: Backend, front: FrontendResult, cam, cfg: RenderConfig
         span_overflow=front.span_overflow,
     )
     return RenderResult(image=rast.image[: cam.height, : cam.width], stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# Batched multi-camera rendering (cached by static signature)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraBatch:
+    """A batch of cameras sharing static geometry (resolution, clip planes).
+
+    Per-camera pose and intrinsics are stacked host tensors. The intrinsics
+    stay float64, so :meth:`camera` rebuilds each lane's Camera exactly as
+    it came in and a lane renders bitwise like the single camera.
+    """
+
+    R: torch.Tensor    # (B, 3, 3) float32
+    t: torch.Tensor    # (B, 3) float32
+    fx: torch.Tensor   # (B,) float64
+    fy: torch.Tensor   # (B,) float64
+    cx: torch.Tensor   # (B,) float64
+    cy: torch.Tensor   # (B,) float64
+    width: int
+    height: int
+    znear: float = 0.2
+    zfar: float = 1000.0
+
+    @classmethod
+    def from_cameras(cls, cams: Sequence[Camera]) -> "CameraBatch":
+        if not cams:
+            raise ValueError("empty camera batch")
+        w, h = cams[0].width, cams[0].height
+        zn, zf = cams[0].znear, cams[0].zfar
+        for c in cams:
+            if (c.width, c.height, c.znear, c.zfar) != (w, h, zn, zf):
+                raise ValueError(
+                    "all cameras in a batch must share width/height/znear/zfar"
+                )
+
+        def stack(f, dtype):
+            return torch.from_numpy(np.stack([np.asarray(f(c), dtype) for c in cams]))
+
+        return cls(
+            R=stack(lambda c: c.R, np.float32),
+            t=stack(lambda c: c.t, np.float32),
+            fx=stack(lambda c: c.fx, np.float64),
+            fy=stack(lambda c: c.fy, np.float64),
+            cx=stack(lambda c: c.cx, np.float64),
+            cy=stack(lambda c: c.cy, np.float64),
+            width=w,
+            height=h,
+            znear=zn,
+            zfar=zf,
+        )
+
+    def __len__(self) -> int:
+        return int(self.R.shape[0])
+
+    def camera(self, i: int) -> Camera:
+        """Lane ``i`` as a Camera."""
+        return Camera(
+            R=self.R[i].cpu().numpy(), t=self.t[i].cpu().numpy(),
+            fx=float(self.fx[i]), fy=float(self.fy[i]),
+            cx=float(self.cx[i]), cy=float(self.cy[i]),
+            width=self.width, height=self.height, znear=self.znear, zfar=self.zfar,
+        )
+
+
+def batch_signature(cfg: RenderConfig, cam) -> tuple:
+    """The full static signature of one (config, camera-geometry) pair.
+
+    Accepts a ``Camera`` or a ``CameraBatch`` (anything with width/height/
+    znear/zfar). Two renders share a cached renderer iff their signatures
+    are equal; the serving bucketer groups requests by this key.
+    """
+    return (cfg, cam.width, cam.height, cam.znear, cam.zfar)
+
+
+def _stack_results(outs: Sequence[RenderResult]) -> RenderResult:
+    """B single-camera results -> one result: image (B, H, W, 3), each
+    stats field (B,)."""
+    names = [f.name for f in dataclasses.fields(RenderStats)]
+    return RenderResult(
+        image=torch.stack([o.image for o in outs]),
+        stats=RenderStats(**{
+            n: torch.stack([getattr(o.stats, n).reshape(()) for o in outs])
+            for n in names
+        }),
+    )
+
+
+def batch_renderer(cfg: RenderConfig, width, height, znear, zfar):
+    """The renderer of one static signature: ``fn(scene, batch, background)``
+    renders each lane through :func:`render` and stacks the results."""
+
+    def fn(scene, batch: CameraBatch, background=None) -> RenderResult:
+        if (batch.width, batch.height, batch.znear, batch.zfar) != (width, height, znear, zfar):
+            raise ValueError("camera batch geometry differs from the renderer's signature")
+        return _stack_results(
+            [render(scene, batch.camera(i), cfg, background) for i in range(len(batch))]
+        )
+
+    return fn
+
+
+_batch_renderer = functools.lru_cache(maxsize=64)(batch_renderer)
+
+
+# Auxiliary renderer-adjacent caches (name -> (info_fn, clear_fn)). Every
+# open engine handle registers its cache here, so ``render_cache_clear`` /
+# ``render_cache_info`` stay the single source of truth.
+_AUX_RENDER_CACHES: dict = {}
+
+
+def register_render_cache(name: str, *, info, clear) -> None:
+    """Register an auxiliary cache under ``name``. ``info()`` must return a
+    dict with at least ``hits``/``misses`` ints; ``clear()`` must drop every
+    entry and reset both."""
+    if name in ("single", "batch"):
+        raise ValueError(f"cache name {name!r} is reserved")
+    _AUX_RENDER_CACHES[name] = (info, clear)
+
+
+def unregister_render_cache(name: str) -> None:
+    """Remove an auxiliary cache from the registry. Unknown names are a
+    no-op so close() stays idempotent."""
+    _AUX_RENDER_CACHES.pop(name, None)
+
+
+def render_cache_clear() -> None:
+    """Drop ALL cached renderers and registered auxiliary caches."""
+    _batch_renderer.cache_clear()
+    for _, clear in list(_AUX_RENDER_CACHES.values()):
+        clear()
+
+
+def render_cache_info() -> dict:
+    """Statistics for every renderer cache as plain dicts:
+    ``{"batch": {hits, misses, currsize, maxsize}, **aux}`` with one
+    ``"engineN"`` entry per open handle."""
+    info = _batch_renderer.cache_info()
+    out = {
+        "batch": {
+            "hits": info.hits, "misses": info.misses,
+            "currsize": info.currsize, "maxsize": info.maxsize,
+        },
+    }
+    for name, (aux_info, _) in list(_AUX_RENDER_CACHES.items()):
+        out[name] = aux_info()
+    return out
+
+
+def _collect_render_caches(registry) -> None:
+    """Metrics collector: publish every render cache's hit/miss/size table
+    as ``render_cache.<name>.<field>`` gauges at snapshot time; the prefix
+    is dropped first so closed handles leave no stale series behind."""
+    registry.drop("render_cache.")
+    for kind, info in render_cache_info().items():
+        for k, v in info.items():
+            if isinstance(v, (int, float)):
+                registry.gauge(f"render_cache.{kind}.{k}").set(v)
+
+
+get_registry().register_collector("render_caches", _collect_render_caches)
+
+
+def render_batch(
+    scene: GaussianScene,
+    cams: Union[CameraBatch, Sequence[Camera]],
+    cfg: RenderConfig,
+    background: Optional[torch.Tensor] = None,
+) -> RenderResult:
+    """Render B cameras of one geometry (image: (B, H, W, 3); stats: (B,)),
+    each lane bitwise equal to ``render(scene, cam_i, cfg, background)``.
+    The renderer is cached by the static (RenderConfig, geometry)
+    signature."""
+    batch = cams if isinstance(cams, CameraBatch) else CameraBatch.from_cameras(cams)
+    return _batch_renderer(*batch_signature(cfg, batch))(scene, batch, background)
+
+
+_ITEM_SHIMS = "6: the JAX package's deprecated free functions"
+render_jit = not_ported("render_jit", _ITEM_SHIMS)
+render_image = not_ported("render_image", _ITEM_SHIMS)

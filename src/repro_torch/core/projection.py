@@ -41,6 +41,29 @@ class Projected:
     valid: torch.Tensor       # (N,) bool frustum/size cull mask
 
 
+# Per-field trailing widths of Projected — the basis of the per-camera
+# activation term in the device-budget model (engine/handle.py): every field
+# is float32 except ``valid`` (bool, 1 byte).
+PROJECTED_FIELD_WIDTHS = {
+    "mean2d": 2, "cov2d": 3, "conic": 3, "depth": 1, "radius": 1,
+    "axis_radius": 2, "eigvec": 2, "eigval": 2, "rgb": 3, "alpha": 1,
+    "valid": 1,
+}
+
+
+def projected_bytes_per_gaussian() -> int:
+    """Bytes of projected per-camera features one gaussian costs."""
+    # Guard against schema drift: a Projected field added without updating
+    # the widths dict would silently undercount the device-budget model.
+    assert set(PROJECTED_FIELD_WIDTHS) == {
+        f.name for f in dataclasses.fields(Projected)
+    }, "PROJECTED_FIELD_WIDTHS out of sync with Projected's fields"
+    return sum(
+        w * (1 if name == "valid" else 4)
+        for name, w in PROJECTED_FIELD_WIDTHS.items()
+    )
+
+
 def proj_take(proj: Projected, name: str, idx: torch.Tensor) -> torch.Tensor:
     """Gather field ``name`` at gaussian indices ``idx`` (any shape). The
     port keeps projected features flat; the per-shard layout of the JAX

@@ -1,55 +1,481 @@
-"""The session-style rendering handle (mirror of the synchronous core of
-``repro.engine.handle``).
+"""The session-style rendering handle (mirror of ``repro.engine.handle`` for
+a replicated commit on one device, DESIGN.md §11).
 
-``engine.open(scene, cfg)`` commits the scene to the device once and returns
-a :class:`Renderer` with ``.render(cam)``, ``.close()`` and the
-context-manager protocol. The rest of the JAX handle (``render_batch``,
-``submit``, ``stats``, autotune, residency, meshes) is not ported yet
-(ROADMAP queue 1, item 6) and raises.
+``engine.open(scene, cfg)`` commits the scene to the device once and
+returns a :class:`Renderer`:
+
+  * ``.render(cam)`` / ``.render_batch(cams, pad_to=...)`` are the
+    synchronous entry points; a batch renders lane by lane through the same
+    ``render``, so every lane is bitwise equal to a single render;
+  * ``.render_frontend(cam)`` / ``.render_backend(front, cam)`` are the two
+    halves of ``render``;
+  * ``.submit(cam)`` returns a ``concurrent.futures.Future`` served by an
+    internal queue -> bucketing-scheduler worker thread; a request that
+    fails resolves its own future with the exception and the worker lives
+    on;
+  * the handle owns a per-geometry cache of its render callables,
+    registered with ``core.pipeline.register_render_cache`` so
+    ``render_cache_info()`` covers it;
+  * ``.close()`` (or the context manager) drains the worker, fails what it
+    never resolved, unregisters the cache and releases the scene.
+
+Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
+item: meshes, several devices and scene sharding (queue 1, item 8);
+tile-parameter autotune, paged residency and stream sessions (item 11);
+the module-default handles behind the JAX package's deprecated free
+functions (item 6).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import itertools
+import threading
+import time
+import weakref
+from concurrent.futures import Future
+from concurrent.futures import wait as _futures_wait
+from typing import Any, Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.camera import Camera
 from repro_torch.core.gaussians import GaussianScene
-from repro_torch.core.pipeline import RenderConfig, RenderResult, check_config, render
-from repro_torch.utils import resolve_device
+from repro_torch.core.pipeline import (
+    CameraBatch,
+    FrontendResult,
+    RenderConfig,
+    RenderResult,
+    batch_renderer,
+    check_config,
+    register_render_cache,
+    render,
+    render_backend,
+    render_frontend,
+    unregister_render_cache,
+)
+from repro_torch.core.projection import projected_bytes_per_gaussian
+from repro_torch.obs import emit_request_spans, get_registry, get_tracer
+from repro_torch.serving.bucketing import BucketingScheduler, padded_size
+from repro_torch.serving.queue import QueueClosed, RequestQueue
+from repro_torch.serving.sharded import pad_camera_batch
+from repro_torch.utils import pytree_bytes, resolve_device
+from repro_torch.utils.misc import not_ported
 
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 6: engine handle)"
+_HANDLE_SEQ = itertools.count()
+_FN_CACHE_MAX = 64          # per-handle cached-renderer bound
+_ITEM_SHARDING = "8: sharding along the gaussian axis"
+_ITEM_STREAMS = "11: streams, residency, autotune"
+_ITEM_DEFAULTS = "6: the module-default handles behind the deprecated free functions"
+# open() options of the JAX handle the port does not take yet -> queue item.
+_UNPORTED_OPTIONS = {
+    "devices": _ITEM_SHARDING,
+    "mesh": _ITEM_SHARDING,
+    "tile_params": _ITEM_STREAMS,
+    "autotune_opts": _ITEM_STREAMS,
+    "residency": _ITEM_STREAMS,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Submitted:
+    """One queued ``submit()`` request: the camera plus its future. Within
+    one handle the config and scene are fixed, so the bucketing signature
+    is the camera geometry alone (one bucket per resolution)."""
+
+    camera: Any
+    future: Future
+    enqueue_time: Optional[float] = None
+    request_id: str = ""
+    # Lifecycle stamps: the dict object rides through the queue's
+    # dataclasses.replace copies, so every phase writes into one map.
+    stamps: Dict[str, float] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False
+    )
+
+    def signature(self) -> tuple:
+        c = self.camera
+        return (c.width, c.height, c.znear, c.zfar)
 
 
 class Renderer:
-    """A scene committed to one device under one RenderConfig."""
+    """A committed (scene, config) pair on one device with render/serve
+    entry points. Construct through :func:`open`. ``submit`` is the
+    thread-safe entry; the internal worker owns all device work for the
+    futures path."""
 
-    def __init__(self, scene: GaussianScene, cfg: RenderConfig, device=None):
+    def __init__(
+        self,
+        scene: GaussianScene,
+        cfg: RenderConfig,
+        *,
+        device=None,
+        device_budget_mb: Optional[float] = None,
+        max_batch: int = 8,
+        max_wait: float = 0.05,
+        queue_depth: int = 64,
+        clock=time.monotonic,
+    ):
         check_config(cfg)
         self._device = resolve_device(device)
         self._cfg = cfg
+        # Per-device budget model (DESIGN.md §12) for a replicated commit:
+        # the scene parameters plus the per-camera projected features, both
+        # whole (one physical shard, feature divisor 1).
+        self._scene_mb_per_device = pytree_bytes(scene) / 2**20
+        self._feature_mb_per_device = (
+            scene.num_gaussians * projected_bytes_per_gaussian() / 2**20
+        )
+        need = self._scene_mb_per_device + self._feature_mb_per_device
+        if device_budget_mb is not None and need > device_budget_mb:
+            raise ValueError(
+                f"scene needs {need:.2f} MB/device replicated "
+                f"({self._scene_mb_per_device:.2f} MB parameters + "
+                f"{self._feature_mb_per_device:.2f} MB per-camera projected "
+                f"features at N/1), over the {device_budget_mb} MB budget — "
+                f"sharding the scene is not ported yet (ROADMAP queue 1, "
+                f"item {_ITEM_SHARDING})"
+            )
         self._scene: Optional[GaussianScene] = scene.to(self._device)
+
+        # Per-handle renderer cache, visible through the engine-wide
+        # registry through a weakref, so the registry never pins the handle;
+        # the finalizer removes the entry close() would have removed.
+        self._fns: Dict[tuple, Any] = {}
+        self._fn_stats = {"hits": 0, "misses": 0}
+        self._fn_lock = threading.Lock()
+        self.cache_name = f"engine{next(_HANDLE_SEQ)}"
+        self_ref = weakref.ref(self)
+
+        def _info(ref=self_ref):
+            h = ref()
+            return h.cache_info() if h is not None else {
+                "hits": 0, "misses": 0, "currsize": 0, "maxsize": _FN_CACHE_MAX,
+            }
+
+        def _clear(ref=self_ref):
+            h = ref()
+            if h is not None:
+                h._cache_clear()
+
+        register_render_cache(self.cache_name, info=_info, clear=_clear)
+        weakref.finalize(self, unregister_render_cache, self.cache_name)
+
+        # Futures front-end (worker started lazily on first submit()).
+        self._clock = clock
+        self._max_batch = max_batch
+        self._queue = RequestQueue(queue_depth, clock=clock)
+        self._scheduler = BucketingScheduler(max_batch, max_wait, clock=clock)
+        self._worker_lock = threading.Lock()
+        self._worker: Optional[threading.Thread] = None
+        self._flush_event = threading.Event()
+        self._outstanding: List[Future] = []
+        self._counters = {
+            "submitted": 0, "completed": 0, "batches": 0, "padded_lanes": 0,
+        }
+        self._closed = False
+
+    # -- committed-state introspection --------------------------------------
+
+    @property
+    def cfg(self) -> RenderConfig:
+        return self._cfg
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def stats(self) -> dict:
+        """Committed layout + per-handle cache and futures counters. Also
+        publishes them as per-handle gauges in the metrics registry
+        (dropped again by close())."""
+        registry = get_registry()
+        prefix = f"engine.{self.cache_name}."
+        registry.gauge(prefix + "scene_mb_per_device").set(self._scene_mb_per_device)
+        registry.gauge(prefix + "feature_mb_per_device").set(self._feature_mb_per_device)
+        registry.gauge(prefix + "physical_shards").set(1)
+        with self._worker_lock:
+            counters = dict(self._counters)
+        for k, v in counters.items():
+            registry.gauge(prefix + k).set(v)
+        return {
+            "config": self._cfg,
+            "tile_params": (self._cfg.tile, self._cfg.group, self._cfg.tile_capacity),
+            "device": str(self._device),
+            "scene_shards": 1,
+            "physical_shards": 1,
+            "scene_mb_per_device": self._scene_mb_per_device,
+            "feature_mb_per_device": self._feature_mb_per_device,
+            "feature_gather": "flat",
+            "cache": self.cache_info(),
+            **counters,
+        }
+
+    def cache_info(self) -> dict:
+        with self._fn_lock:
+            return {
+                "hits": self._fn_stats["hits"],
+                "misses": self._fn_stats["misses"],
+                "currsize": len(self._fns),
+                "maxsize": _FN_CACHE_MAX,
+            }
+
+    def _cache_clear(self) -> None:
+        with self._fn_lock:
+            self._fns.clear()
+            self._fn_stats["hits"] = 0
+            self._fn_stats["misses"] = 0
+
+    # -- per-handle renderer cache -------------------------------------------
+
+    def _fn(self, kind: str, cam):
+        """The renderer for ``kind`` x this camera's geometry. The config is
+        committed, so the key is the geometry alone. Each callable runs the
+        same ``core.pipeline`` functions as a free call, so its outputs equal
+        them bit for bit."""
+        key = (kind, cam.width, cam.height, cam.znear, cam.zfar)
+        with self._fn_lock:
+            fn = self._fns.get(key)
+            if fn is not None:
+                self._fn_stats["hits"] += 1
+                return fn
+            self._fn_stats["misses"] += 1
+            cfg, geom = self._cfg, key[1:]
+            if kind == "single":
+                fn = lambda scene, cam, bg: render(scene, cam, cfg, bg)
+            elif kind == "batch":
+                fn = batch_renderer(cfg, *geom)
+            elif kind == "frontend":
+                fn = lambda scene, cam: render_frontend(scene, cam, cfg)
+            else:
+                # The backend reads only the static geometry (grid + crop).
+                geom_cam = Camera(
+                    R=np.eye(3, dtype=np.float32), t=np.zeros(3, np.float32),
+                    fx=1.0, fy=1.0, cx=0.0, cy=0.0,
+                    width=geom[0], height=geom[1], znear=geom[2], zfar=geom[3],
+                )
+                fn = lambda front, bg: render_backend(front, geom_cam, cfg, bg)
+            while len(self._fns) >= _FN_CACHE_MAX:
+                self._fns.pop(next(iter(self._fns)))
+            self._fns[key] = fn
+            return fn
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError("Renderer is closed")
+
+    def _background(self, background) -> Optional[torch.Tensor]:
+        if background is None:
+            return None
+        return torch.as_tensor(background, dtype=torch.float32, device=self._device)
+
+    # -- synchronous entry points -------------------------------------------
 
     def render(self, cam: Camera, background=None) -> RenderResult:
         """Render one camera against the committed scene."""
-        if self._scene is None:
-            raise RuntimeError("Renderer is closed")
-        if background is not None:
-            background = torch.as_tensor(background, dtype=torch.float32, device=self._device)
+        self._check_open()
+        fn = self._fn("single", cam)
         with torch.inference_mode():
-            return render(self._scene, cam, self._cfg, background)
+            return fn(self._scene, cam, self._background(background))
 
-    def render_batch(self, *args, **kwargs):
-        raise NotImplementedError(f"Renderer.render_batch {_NOT_PORTED}")
+    def render_frontend(self, cam: Camera) -> FrontendResult:
+        """Only the frontend half (project -> identify -> bin) for one
+        camera; feed the result to :meth:`render_backend` for pixels."""
+        self._check_open()
+        fn = self._fn("frontend", cam)
+        with torch.inference_mode():
+            return fn(self._scene, cam)
 
-    def submit(self, *args, **kwargs):
-        raise NotImplementedError(f"Renderer.submit {_NOT_PORTED}")
+    def render_backend(
+        self, front: FrontendResult, cam: Camera, background=None
+    ) -> RenderResult:
+        """Only the backend half (bitmask -> compact -> rasterize) on a
+        :class:`FrontendResult`. ``render_backend(render_frontend(cam), cam)``
+        equals ``render(cam)``; only the static geometry of ``cam`` is read."""
+        self._check_open()
+        fn = self._fn("backend", cam)
+        with torch.inference_mode():
+            return fn(front, self._background(background))
 
-    def stats(self):
-        raise NotImplementedError(f"Renderer.stats {_NOT_PORTED}")
+    def render_batch(
+        self,
+        cams: Union[CameraBatch, Sequence[Camera]],
+        pad_to: Optional[int] = None,
+        background=None,
+    ) -> RenderResult:
+        """Render B cameras of one geometry: image (B, H, W, 3), each stats
+        field (B,). The batch is padded to ``max(B, pad_to)`` by replicating
+        the last camera, as the JAX package pads its dispatch shape; the
+        padded lanes are rendered and dropped, and exactly B come back."""
+        self._check_open()
+        batch = cams if isinstance(cams, CameraBatch) else CameraBatch.from_cameras(cams)
+        orig = len(batch)
+        padded = pad_camera_batch(batch, padded_size(max(orig, pad_to or 0), 1))
+        fn = self._fn("batch", padded)
+        with torch.inference_mode():
+            out = fn(self._scene, padded, self._background(background))
+        if len(padded) != orig:
+            out = out.map(lambda x: x[:orig])
+        return out
+
+    def open_stream(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"Renderer.open_stream is not ported yet (ROADMAP queue 1, item {_ITEM_STREAMS})"
+        )
+
+    # -- futures front-end ---------------------------------------------------
+
+    def submit(self, cam: Camera) -> Future:
+        """Enqueue one camera; returns a Future of its ``RenderResult`` with
+        every tensor on the CPU (the worker copies them to the host before it
+        resolves). Requests batch with other submits of the same geometry up
+        to the handle's ``max_batch``/``max_wait``; a full queue blocks the
+        producer. Thread-safe."""
+        self._check_open()
+        fut: Future = Future()
+        self._ensure_worker()
+        # Track before enqueueing: the worker may dispatch (and untrack) the
+        # request the instant it lands in the queue.
+        with self._worker_lock:
+            self._counters["submitted"] += 1
+            seq = self._counters["submitted"]
+            self._outstanding.append(fut)
+        get_registry().counter("engine.submitted_total").inc()
+        try:
+            self._queue.put(_Submitted(
+                camera=cam, future=fut, request_id=f"{self.cache_name}#{seq}",
+            ))
+        except QueueClosed:
+            with self._worker_lock:
+                self._counters["submitted"] -= 1
+                self._outstanding.remove(fut)
+            raise RuntimeError("Renderer is closed") from None
+        return fut
+
+    def flush(self, timeout: Optional[float] = None) -> None:
+        """Force-dispatch pending buckets and wait for outstanding futures."""
+        self._flush_event.set()
+        with self._worker_lock:
+            futs = list(self._outstanding)
+        _, not_done = _futures_wait(futs, timeout=timeout)
+        if not_done:
+            raise TimeoutError(f"flush timed out with {len(not_done)} pending")
+
+    def _ensure_worker(self) -> None:
+        with self._worker_lock:
+            if self._worker is None or not self._worker.is_alive():
+                self._worker = threading.Thread(
+                    target=self._worker_loop, name=f"{self.cache_name}-worker", daemon=True,
+                )
+                self._worker.start()
+
+    def _worker_loop(self) -> None:
+        q, sched = self._queue, self._scheduler
+        poll_s = max(min(sched.max_wait, 0.01), 0.001)
+        try:
+            # inference_mode is thread-local: the worker enters its own.
+            with torch.inference_mode():
+                while True:
+                    for req in q.get_batch(timeout=poll_s):
+                        for bucket in sched.add(req):
+                            self._dispatch_bucket(bucket)
+                    if self._flush_event.is_set():
+                        self._flush_event.clear()
+                        for req in q.drain():
+                            for bucket in sched.add(req):
+                                self._dispatch_bucket(bucket)
+                        for bucket in sched.flush_all():
+                            self._dispatch_bucket(bucket)
+                    for bucket in sched.poll():
+                        self._dispatch_bucket(bucket)
+                    if q.closed and len(q) == 0:
+                        for bucket in sched.flush_all():
+                            self._dispatch_bucket(bucket)
+                        return
+        except BaseException as exc:      # noqa: BLE001 — futures must terminate
+            # A crash outside _dispatch_bucket's own handler would otherwise
+            # strand every outstanding future unresolved forever.
+            self._fail_outstanding(exc)
+            raise
+
+    def _fail_outstanding(self, exc: BaseException) -> None:
+        """Terminate every tracked future with ``exc`` (queued and scheduled
+        requests are all in ``_outstanding``: submit tracks before enqueue)."""
+        with self._worker_lock:
+            futs, self._outstanding[:] = list(self._outstanding), []
+        self._queue.drain()
+        self._scheduler.flush_all()
+        for fut in futs:
+            if fut.set_running_or_notify_cancel():
+                fut.set_exception(exc)
+
+    def _dispatch_bucket(self, bucket) -> None:
+        reqs = bucket.requests
+        tracer = get_tracer()
+        t0 = self._clock()
+        try:
+            out = self.render_batch([r.camera for r in reqs], pad_to=self._max_batch)
+            host = out.map(torch.Tensor.cpu)     # blocks on the device work
+            results = [host.map(lambda x, i=i: x[i]) for i in range(len(reqs))]
+        except Exception as exc:                   # noqa: BLE001 — futures own it
+            with self._worker_lock:
+                for r in reqs:
+                    self._outstanding.remove(r.future)
+            for r in reqs:
+                # A future cancelled between submit and dispatch must not
+                # kill the worker (set_* on a cancelled Future raises).
+                if r.future.set_running_or_notify_cancel():
+                    r.future.set_exception(exc)
+            return
+        t1 = self._clock()
+        padded = padded_size(max(len(reqs), self._max_batch), 1)
+        with self._worker_lock:
+            self._counters["batches"] += 1
+            self._counters["completed"] += len(reqs)
+            self._counters["padded_lanes"] += padded - len(reqs)
+            for r in reqs:
+                self._outstanding.remove(r.future)
+        registry = get_registry()
+        registry.counter("engine.batches_total").inc()
+        registry.counter("engine.completed_total").inc(len(reqs))
+        registry.counter("engine.padded_lanes_total").inc(padded - len(reqs))
+        registry.histogram("engine.dispatch_s").observe(t1 - t0)
+        if tracer.enabled:
+            tracer.complete(
+                "engine/dispatch", t0, t1, category="engine",
+                args={"handle": self.cache_name, "batch_size": len(reqs), "padded": padded},
+            )
+        for r, res in zip(reqs, results):
+            r.stamps["dispatch"] = t0
+            r.stamps["device_done"] = t1
+            if r.future.set_running_or_notify_cancel():
+                r.future.set_result(res)
+            r.stamps["resolve"] = self._clock()
+            emit_request_spans(tracer, r.request_id, r.stamps,
+                               args={"handle": self.cache_name})
+
+    # -- lifecycle -----------------------------------------------------------
 
     def close(self) -> None:
-        """Release the committed scene. Idempotent."""
+        """Drain the worker, fail the futures it never resolved, drop and
+        unregister the renderer cache, and release the committed scene.
+        Idempotent; the handle is unusable afterwards."""
+        if self._closed:
+            return
+        self._queue.close()                 # wakes the worker; drains pending
+        worker = self._worker
+        if worker is not None and worker.is_alive():
+            worker.join()
+        # A healthy worker resolved everything on the way out; if it died
+        # earlier the remaining futures must still terminate.
+        self._fail_outstanding(RuntimeError(
+            f"Renderer {self.cache_name} closed before the request resolved"
+        ))
+        self._closed = True
+        self._worker = None
+        unregister_render_cache(self.cache_name)
+        get_registry().drop(f"engine.{self.cache_name}.")
+        self._cache_clear()
         self._scene = None
 
     def __enter__(self) -> "Renderer":
@@ -59,9 +485,9 @@ class Renderer:
         self.close()
 
     def __repr__(self) -> str:
-        state = "closed" if self._scene is None else "open"
+        state = "closed" if self._closed else "open"
         return (
-            f"<Renderer {state} mode={self._cfg.mode!r} "
+            f"<Renderer {self.cache_name} {state} mode={self._cfg.mode!r} "
             f"backend={self._cfg.backend!r} device={self._device}>"
         )
 
@@ -71,12 +497,43 @@ def open(  # noqa: A001 — the module-level session verb is the API
     cfg: RenderConfig,
     *,
     device=None,
+    scene_shards: Union[str, int] = "auto",
+    device_budget_mb: Optional[float] = None,
+    max_batch: int = 8,
+    max_wait: float = 0.05,
+    queue_depth: int = 64,
+    clock=time.monotonic,
     **unported,
 ) -> Renderer:
     """Commit ``(scene, cfg)`` to ``device`` (CUDA unless the caller names
-    another; raises when CUDA is missing) and return the handle. The JAX
-    handle's other options (meshes, budgets, autotune, residency) are not
-    ported yet and raise."""
-    if unported:
-        raise NotImplementedError(f"open({', '.join(sorted(unported))}=...) {_NOT_PORTED}")
-    return Renderer(scene, cfg, device=device)
+    another; raises when CUDA is missing) and return the :class:`Renderer`.
+
+    * ``device_budget_mb`` — per-device memory cap counting the scene
+      parameters plus the per-camera projected features; an over-budget
+      commit raises.
+    * ``max_batch``/``max_wait``/``queue_depth`` — the ``submit()`` futures
+      front-end's batching knobs; ``clock`` is the scheduler's clock.
+    * ``scene_shards`` — ``'auto'`` or 1; ``devices``, ``mesh``, other shard
+      counts, ``tile_params``, ``autotune_opts`` and ``residency`` raise
+      ``NotImplementedError`` naming their ROADMAP item.
+    """
+    for name in unported:
+        if name not in _UNPORTED_OPTIONS:
+            raise TypeError(f"open() got an unexpected keyword argument {name!r}")
+        raise NotImplementedError(
+            f"open({name}=...) is not ported yet (ROADMAP queue 1, item "
+            f"{_UNPORTED_OPTIONS[name]})"
+        )
+    if scene_shards not in ("auto", 1):
+        raise NotImplementedError(
+            f"open(scene_shards={scene_shards!r}) is not ported yet (ROADMAP queue 1, "
+            f"item {_ITEM_SHARDING})"
+        )
+    return Renderer(
+        scene, cfg, device=device, device_budget_mb=device_budget_mb,
+        max_batch=max_batch, max_wait=max_wait, queue_depth=queue_depth, clock=clock,
+    )
+
+
+default_renderer = not_ported("default_renderer", _ITEM_DEFAULTS)
+close_default_renderers = not_ported("close_default_renderers", _ITEM_DEFAULTS)

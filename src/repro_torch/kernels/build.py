@@ -32,7 +32,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("bitmask_gen", "raster_tile")
+SOURCES = ("bitmask_gen", "raster_tile", "bitonic_sort")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -46,6 +46,7 @@ LAUNCHES: Dict[str, int] = {
     "bitmask_gen": 0,
     "raster_group_fused": 0,
     "raster_tile": 0,
+    "bitonic_sort": 0,
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,6 @@
-"""Layout glue around the GS-TG kernels (mirror of the geometry helpers in
-``repro.kernels.ops``): bin origins, member tiles inside the image, and
-kernel-output -> image assembly."""
+"""Layout glue around the GS-TG kernels (mirror of ``repro.kernels.ops``):
+bin origins, member tiles inside the image, kernel-output -> image
+assembly, and the GSM entry point ``sort_groups_bitonic``."""
 from __future__ import annotations
 
 import torch
@@ -39,6 +39,22 @@ def member_tiles(grid, device=None):
 def tiles_in_image(grid, device=None) -> torch.Tensor:
     """(num_groups, tpg) bool: member tile lies inside the image."""
     return member_tiles(grid, device)[1]
+
+
+def sort_groups_bitonic(depth_keys: torch.Tensor, payload_idx: torch.Tensor):
+    """GSM path: per-group depth sort through the bitonic kernel.
+
+    depth_keys: (G, K) float32 with +inf at invalid slots; payload_idx:
+    (G, K) int32. Returns (keys, idx) sorted ascending by key. The indices
+    travel as float32, exact below 2**24. As in the JAX package, the
+    render path bins with the stable sort instead; this is the ASIC's sort
+    unit, run on its own."""
+    from repro_torch.kernels.bitonic_sort import bitonic_sort_kernel
+
+    if payload_idx.dtype != torch.int32:
+        raise ValueError(f"payload_idx must be int32, got {payload_idx.dtype}")
+    k, v = bitonic_sort_kernel(depth_keys, payload_idx.to(torch.float32))
+    return k, v.to(torch.int32)
 
 
 def _background(background, out) -> torch.Tensor:

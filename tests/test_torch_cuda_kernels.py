@@ -6,25 +6,30 @@ only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Inputs come from the port's own frontend on a seeded scene. Tolerances:
-the bitmask kernel is bit-exact; the raster kernels blend sequentially
-where the plain versions take a per-chunk cumprod, so images agree to 1e-5
-and counters exactly at these sizes; the kernel backend matches the
-reference backend the same way.
+Inputs come from the port's own frontend on a seeded scene, or from seeded
+numpy for the sort. Tolerances: the bitmask and bitonic kernels are
+bit-exact; the raster kernels blend sequentially where the plain versions
+take a per-chunk cumprod, so images agree to 1e-5 and counters exactly at
+these sizes; the kernel backend matches the reference backend the same
+way; the engine handle's batch and futures paths are bitwise equal to its
+single render.
 """
 import dataclasses
 import functools
 import math
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch import engine
 from repro_torch.core import camera, pipeline
 from repro_torch.core.bitmask import generate_bitmasks
 from repro_torch.core.gaussians import random_scene
 from repro_torch.core.grouping import GridSpec
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.bitmask_gen import bitmask_kernel, bitmask_plain
+from repro_torch.kernels.bitonic_sort import bitonic_sort_kernel, bitonic_sort_plain
 from repro_torch.kernels.layout import LANE, pack_features
 from repro_torch.kernels.raster_tile import (
     raster_group_fused_kernel,
@@ -145,3 +150,74 @@ def test_gstg_bitwise_equals_tile_baseline_on_the_card(cuda_device):
     for stats in (ours.stats.as_dict(), base.stats.as_dict()):
         assert stats["overflow"] == 0 and stats["span_overflow"] == 0
     assert torch.equal(ours.image, base.image)
+
+
+def _sort_case(G, K, seed):
+    """Seeded keys with many ties (drawn from a small set, ±0.0 among them),
+    +inf padding at the end of each row, and a permuted index payload."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([-2.5, -0.0, 0.0, 0.5, 1.0, 7.25, np.inf], np.float32)
+    keys = pool[rng.integers(0, pool.size, (G, K))]
+    live = rng.integers(0, K + 1, G)
+    keys[np.arange(K)[None, :] >= live[:, None]] = np.inf
+    payload = np.stack([rng.permutation(K) for _ in range(G)]).astype(np.float32)
+    return torch.from_numpy(keys), torch.from_numpy(payload)
+
+
+@pytest.mark.parametrize("G,K", [(5, 1), (5, 2), (6, 1024), (4, 8192), (3, 16384), (2, 65536)])
+def test_bitonic_kernel_bitwise(cuda_device, G, K):
+    """K = 65536 runs the global-memory passes for the stages wider than a
+    block's shared-memory span."""
+    keys, payload = _sort_case(G, K, seed=K)
+    want_k, want_v = bitonic_sort_plain(keys, payload)
+    before = build.LAUNCHES["bitonic_sort"]
+    got_k, got_v = bitonic_sort_kernel(keys.to(cuda_device), payload.to(cuda_device))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["bitonic_sort"] == before + 1
+    assert torch.equal(got_k.cpu().view(torch.int32), want_k.view(torch.int32))
+    assert torch.equal(got_v.cpu().view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(got_k.cpu(), torch.sort(keys, dim=-1).values)
+
+
+def test_bitonic_kernel_edge_cases(cuda_device):
+    keys = torch.tensor([[3.0, -0.0, 0.0, float("inf"), 3.0, -1.0, 0.0, float("inf")]])
+    payload = torch.arange(8, dtype=torch.float32)[None]
+    want = bitonic_sort_plain(keys, payload)
+    got = bitonic_sort_kernel(keys.to(cuda_device), payload.to(cuda_device))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+    empty = torch.empty((0, 64), device=cuda_device)
+    out_k, out_v = bitonic_sort_kernel(empty, empty)
+    assert out_k.shape == out_v.shape == (0, 64)
+
+
+def test_bitonic_kernel_refuses_bad_inputs(cuda_device):
+    keys = torch.zeros((2, 100), device=cuda_device)
+    with pytest.raises(ValueError, match="power-of-two"):
+        bitonic_sort_kernel(keys, keys)
+    keys = torch.zeros((2, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        bitonic_sort_kernel(keys, keys.to(torch.int32))
+    with pytest.raises(ValueError, match="float32"):
+        bitonic_sort_kernel(keys.double(), keys)
+
+
+def test_engine_batch_and_submit_bitwise_on_the_card(cuda_device):
+    """render_batch lanes and submit() results equal render(cam_i) bit for
+    bit on the cuda backend; four submits go out as one dispatch."""
+    scene, _, _, _, _, _ = _case()
+    cams = camera.orbit_cameras(4, 5.0, W, H)
+    cfg = dataclasses.replace(CFG, backend="cuda")
+    with engine.open(scene, cfg, device=cuda_device, max_batch=4, max_wait=60.0) as r:
+        singles = [r.render(c) for c in cams]
+        batch = r.render_batch(cams, pad_to=4)
+        futs = [r.submit(c) for c in cams]
+        results = [f.result(timeout=60) for f in futs]
+        stats = r.stats()
+    for i, one in enumerate(singles):
+        assert torch.equal(batch.image[i], one.image)
+        assert torch.equal(results[i].image, one.image.cpu())
+        for name, value in one.stats.as_dict().items():
+            assert int(getattr(batch.stats, name)[i]) == value
+            assert int(getattr(results[i].stats, name)) == value
+    assert (stats["submitted"], stats["completed"], stats["batches"]) == (4, 4, 1)

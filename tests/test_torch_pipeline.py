@@ -18,10 +18,10 @@ from repro.core.pipeline import RenderConfig as JConfig
 from repro_torch import engine
 from repro_torch.core import camera, pipeline
 from repro_torch.core.gaussians import scene_from_numpy
+from torch_parity import IMAGE_TOL as TOL
 from torch_parity import assert_counters_equal, n
 
 GOLDEN = Path(__file__).resolve().parent / "golden"
-TOL = dict(atol=1e-5, rtol=1e-5)
 SMALL_CAM = dict(eye=(0.0, 1.0, 4.5), target=(0.0, 0.0, 0.0), width=96, height=96)
 SMALL_CFG = dict(group_capacity=256, tile_capacity=256)
 
@@ -115,13 +115,12 @@ def test_engine_open_on_cpu_equals_render(small_scene):
         got = r.render(cam, background=bg)
         assert torch.equal(got.image, want.image)
         assert got.stats.as_dict() == want.stats.as_dict()
-        for unported, args in ((r.render_batch, ([cam],)), (r.submit, (cam,)), (r.stats, ())):
-            with pytest.raises(NotImplementedError):
-                unported(*args)
+        assert torch.equal(r.render_batch([cam], background=bg).image[0], want.image)
+        assert r.stats()["device"] == "cpu"
     with pytest.raises(RuntimeError):
         r.render(cam)
-    with pytest.raises(NotImplementedError):
-        engine.open(small_scene, cfg, device="cpu", max_batch=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        engine.open(small_scene, cfg, device="cpu", residency=object())
 
 
 @pytest.mark.parametrize("change", [dict(scene_shards=2), dict(timing=True)])
@@ -157,6 +156,8 @@ def test_import_leaves_jax_and_repro_out():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.engine, repro_torch.configs\n"
         "import repro_torch.kernels.bitmask_gen, repro_torch.kernels.raster_tile\n"
+        "import repro_torch.kernels.bitonic_sort, repro_torch.obs, repro_torch.serving\n"
+        "import repro_torch.serving.sharded, repro_torch.utils\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
     )

@@ -11,6 +11,10 @@ import torch
 from repro_torch.core.grouping import BinTable, PairSet
 from repro_torch.core.projection import Projected
 
+# Port image vs JAX image, end to end: projection drifts by ulps between XLA
+# and torch, and the raster stage carries that into the pixels.
+IMAGE_TOL = dict(atol=1e-5, rtol=1e-5)
+
 
 def t(x) -> torch.Tensor:
     """JAX/numpy array -> CPU tensor (copied)."""
