@@ -12,7 +12,12 @@ line each:
   2. kernel   — each CUDA kernel against its plain PyTorch version on the
                 main path's inputs (bitmask: 3 methods, bit-exact; raster:
                 max-abs <= 1e-4, counters within 1e-5 relative), with
-                CUDA-event times (median of 10 after a warm-up).
+                CUDA-event times (median of 10 after a warm-up); then
+                fused_vs_tile: the fused raster kernel against the tile
+                kernel over the compacted lists of the same table and
+                masks, bit for bit (rgb and counters with early exit, all
+                four rows without), and out-of-image member tiles rgb 0,
+                T 1, counts 0.
      gsm      — the GSM entry point ops.sort_groups_bitonic on the main
                 frame's group lists (527 x 8192, rows permuted): keys and
                 payload bitwise equal to the plain network, keys bitwise
@@ -44,6 +49,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -85,6 +91,36 @@ OPS_PER_BLEND = 9
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def fused_build_report(build) -> dict:
+    """The fused raster kernel as built: its block shape (from the source's
+    constants) and, per instance, registers and shared memory from the
+    ptxas report beside the library. NPIX is pixels a thread; FULL says
+    every pixel slot lies in the tile."""
+    src = (build.CSRC / "raster_tile.cu").read_text()
+    warps = int(re.search(r"constexpr int FUSED_WARPS = (\d+);", src).group(1))
+    pix = int(re.search(r"constexpr int MAX_PIX_PER_THREAD = (\d+);", src).group(1))
+    tile_px = CFG_KW["tile"]
+    per_tile = -(-tile_px * tile_px // (32 * pix))
+    report = {"block_threads": 32 * warps, "warps_per_tile": per_tile,
+              "tiles_per_block": warps // per_tile, "instances": {}}
+    log = Path(f"{build.library_path('raster_tile')}.log")
+    if log.exists():
+        name = None
+        for line in log.read_text().splitlines():
+            m = re.search(r"raster_group_fusedILi(\d+)ELb([01])E", line)
+            if "Compiling entry function" in line:
+                name = f"NPIX={m.group(1)},FULL={m.group(2)}" if m else None
+            elif name and "spill" in line:
+                report["instances"].setdefault(name, {})["spills"] = line.strip()
+            elif name and "Used" in line:
+                regs = re.search(r"Used (\d+) registers", line)
+                smem = re.search(r"(\d+) bytes smem", line)
+                report["instances"].setdefault(name, {}).update(
+                    registers=int(regs.group(1)) if regs else None,
+                    smem_bytes=int(smem.group(1)) if smem else 0)
+    return report
 
 
 def main() -> int:
@@ -148,6 +184,9 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
         if on_card:
             torch.cuda.synchronize()
 
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
     def time_ms(fn, reps=REPS):
         """Median of ``reps`` calls after a warm-up: CUDA events on the card."""
         fn()
@@ -181,7 +220,8 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": count, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
-          "build_wall_s": round(build_wall, 3), "ptxas": ptxas})
+          "build_wall_s": round(build_wall, 3), "ptxas": ptxas,
+          "raster_group_fused": fused_build_report(build)})
 
     # -- main-path inputs ------------------------------------------------------
     spec = PAPER_SCENES["train"]
@@ -273,7 +313,37 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
         NT * (4 * P + 2) * 4,
         (NT * KT + RASTER_ROWS * tile_live) * 4 + torigins.numel() * 4,
     )
-    del tfeat, ttable, feat
+
+    # The tile kernel over the compacted lists is the fused kernel's oracle
+    # on the card: rgb and counters bit for bit, and the transmittance too
+    # without early exit (with it, each stops at a chunk boundary of its own
+    # list). Member tiles outside the image stream nothing.
+    gtile, in_image = ops.member_tiles(grid, dev)
+    gidx = gtile[in_image].long()
+    fused_vs_tile = {}
+    for early_exit in (True, False):
+        out_f, cnt_f = raster_group_fused_kernel(
+            feat, masks_main, origins, grid.tile, grid.gf, chunk=cfg.chunk,
+            early_exit=early_exit, tile_capacity=cfg.tile_capacity)
+        out_t, cnt_t = raster_tile_kernel(tfeat, torigins, grid.tile, chunk=cfg.chunk,
+                                          early_exit=early_exit)
+        sync()
+        rows = 3 if early_exit else 4
+        differ = ((bits(out_f[in_image][:, :rows]) != bits(out_t[gidx][:, :rows]))
+                  .flatten(1).any(1) | (cnt_f[in_image] != cnt_t[gidx]).any(1))
+        outside = out_f[~in_image]
+        not_empty = ((outside[:, :3] != 0).flatten(1).any(1) | (outside[:, 3] != 1).any(1)
+                     | (cnt_f[~in_image] != 0).any(1))
+        key = "early_exit" if early_exit else "no_early_exit"
+        fused_vs_tile[key] = {"rows": rows, "tiles_compared": int(in_image.sum()),
+                              "tiles_differing": int(differ.sum()),
+                              "outside_tiles": int((~in_image).sum()),
+                              "outside_not_empty": int(not_empty.sum())}
+        check(int(differ.sum()) == 0 and int(not_empty.sum()) == 0,
+              f"fused_vs_tile[{key}]: {fused_vs_tile[key]}")
+    emit({"phase": "kernel", "kernel": "raster_group_fused", "check": "fused_vs_tile",
+          **fused_vs_tile})
+    del tfeat, ttable, feat, out_f, out_t, cnt_f, cnt_t
 
     # -- gsm: the bitonic sort on the main frame's group lists -----------------
     gvalid = gtable.entry_valid
@@ -291,9 +361,6 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     pk, pv = bitonic_sort_plain(keys, payload_f)
     lib = torch.sort(keys, dim=-1)
     sync()
-
-    def bits(x):
-        return x.contiguous().view(torch.int32)
 
     same_plain = bool(torch.equal(bits(sk), bits(pk)) and torch.equal(sv, pv.to(torch.int32)))
     same_lib = bool(torch.equal(bits(sk), bits(lib.values)))

@@ -14,7 +14,11 @@ Two entry points, replacing the Pallas TPU kernels of
 
 Both return the (…, 4, T²) rgb + final transmittance block and per-tile
 int32 (alpha_ops, blend_ops) counters. The CUDA source is
-``csrc/raster_tile.cu``; it blends sequentially per pixel. The plain
+``csrc/raster_tile.cu``; both kernels blend sequentially per pixel through
+one shared step. The fused kernel runs one block per group: it stages each
+window of the group's entries once for all member tiles, and each tile's
+warps walk only the entries their tile streams, so it gives the tile
+kernel's rgb and counters bit for bit over the compacted lists. The plain
 versions follow the Pallas kernel's per-chunk exclusive cumprod instead, so
 the two agree to float32 reassociation (images) and to rare flips of the
 T_before > 1e-4 gate (counters). On a CUDA tensor a wrapper launches its
@@ -44,7 +48,7 @@ ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
 QMAX = 9.0
-MAX_CHUNK = 1024  # the CUDA kernel stages 11 words x chunk in shared memory
+MAX_CHUNK = 1024  # the CUDA tile kernel stages 9 words x chunk in shared memory
 
 _P, _I = build.P, build.I
 _SIGNATURES = {

@@ -7,12 +7,14 @@ only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Inputs come from the port's own frontend on a seeded scene, or from seeded
-numpy for the sort. Tolerances: the bitmask and bitonic kernels are
-bit-exact; the raster kernels blend sequentially where the plain versions
-take a per-chunk cumprod, so images agree to 1e-5 and counters exactly at
-these sizes; the kernel backend matches the reference backend the same
-way; the engine handle's batch and futures paths are bitwise equal to its
-single render.
+numpy for the sort and for the odd raster shapes. Tolerances: the bitmask
+and bitonic kernels are bit-exact; the raster kernels blend sequentially
+where the plain versions take a per-chunk cumprod, so images agree to 1e-5
+and counters exactly at these sizes; the fused raster kernel gives the tile
+kernel's rgb and counters bit for bit over the compacted lists of the same
+table (all four rows without early exit); the kernel backend matches the
+reference backend the same way; the engine handle's batch and futures
+paths are bitwise equal to its single render.
 """
 import dataclasses
 import functools
@@ -24,13 +26,20 @@ import torch
 
 from repro_torch import engine
 from repro_torch.core import camera, pipeline
-from repro_torch.core.bitmask import generate_bitmasks
+from repro_torch.core.bitmask import GroupBitmasks, compact_tiles, generate_bitmasks
 from repro_torch.core.gaussians import random_scene
 from repro_torch.core.grouping import GridSpec
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.bitmask_gen import bitmask_kernel, bitmask_plain
 from repro_torch.kernels.bitonic_sort import bitonic_sort_kernel, bitonic_sort_plain
-from repro_torch.kernels.layout import LANE, pack_features
+from repro_torch.kernels.layout import (
+    F_CONIC_A,
+    F_CONIC_C,
+    F_OPACITY,
+    F_VALID,
+    LANE,
+    pack_features,
+)
 from repro_torch.kernels.raster_tile import (
     raster_group_fused_kernel,
     raster_group_fused_plain,
@@ -92,6 +101,95 @@ def test_fused_raster_kernel_vs_plain(cuda_device, gf, tile_capacity, early_exit
     assert build.LAUNCHES["raster_group_fused"] == before + 1
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
     assert torch.equal(got_c.cpu(), want_c)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("chunk", [32, 128])
+@pytest.mark.parametrize("tile_capacity", [None, 7])
+@pytest.mark.parametrize("gf", [2, 4])
+def test_fused_raster_kernel_bitwise_vs_tile_kernel(cuda_device, gf, tile_capacity, chunk,
+                                                    early_exit):
+    """The tile kernel over compact_tiles of the same table and masks is the
+    fused kernel's oracle: rgb and counters bit for bit; the transmittance
+    too without early exit (with it, each kernel stops at a chunk boundary
+    of its own list, which only T shows)."""
+    _, _, grid, front, feat, masks = _case(gf)
+    table, dev = front.table, cuda_device
+    cap = table.capacity if tile_capacity is None else tile_capacity
+    ttable = compact_tiles(table, GroupBitmasks(masks[:, :table.capacity], None), grid, cap)
+    tfeat = pack_features(front.proj, ttable.gauss_idx, ttable.entry_valid,
+                          multiple=math.lcm(LANE, chunk))
+    got, got_c = raster_group_fused_kernel(
+        feat.to(dev), masks.to(dev), ops.group_origins(grid, dev), 16, gf, chunk=chunk,
+        early_exit=early_exit, tile_capacity=tile_capacity)
+    want, want_c = raster_tile_kernel(tfeat.to(dev), ops.tile_origins(grid, dev), 16,
+                                      chunk=chunk, early_exit=early_exit)
+    gtile, in_image = ops.member_tiles(grid, dev)
+    rows = 3 if early_exit else 4
+    mine, oracle = got[in_image][:, :rows], want[gtile[in_image].long()][:, :rows]
+    assert torch.equal(_bits(mine), _bits(oracle))
+    assert torch.equal(got_c[in_image], want_c[gtile[in_image].long()])
+    outside = got[~in_image]
+    assert (outside[:, :3] == 0).all() and (outside[:, 3] == 1).all()
+    assert (got_c[~in_image] == 0).all()
+    assert int(want_c[:, 1].sum()) > 0
+
+
+@pytest.mark.parametrize("chunk", [32, 128])
+def test_fused_raster_kernel_opaque_tiles_stop_where_plain_does(cuda_device, chunk):
+    """Every opacity 0.99 and splats ten times wider, so member tiles die
+    mid-list. The final transmittance is compared relatively (rtol 1e-4): a
+    tile that stopped one chunk early or late would be off by the factors of
+    the entries in between. (atol 1e-30 only admits the float32 subnormals
+    that T reaches by then, where the cumprod and the sequential product
+    keep different bits.)"""
+    _, _, grid, _, feat, masks = _case(4)
+    feat = feat.clone()
+    feat[:, F_OPACITY] = torch.where(feat[:, F_VALID] > 0.5, 0.99, 0.0)
+    feat[:, F_CONIC_A:F_CONIC_C + 1] *= 0.01
+    origins = ops.group_origins(grid)
+    want, want_c = raster_group_fused_plain(feat, masks, origins, 16, 4, chunk=chunk)
+    got, got_c = raster_group_fused_kernel(feat.to(cuda_device), masks.to(cuda_device),
+                                           origins.to(cuda_device), 16, 4, chunk=chunk)
+    got = got.cpu()
+    dead = (want[:, :, 3] <= 1e-4).all(-1)
+    assert int(dead.sum()) > 0
+    torch.testing.assert_close(got[:, :, :3], want[:, :, :3], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got[:, :, 3], want[:, :, 3], atol=1e-30, rtol=1e-4)
+    assert torch.equal(got_c.cpu(), want_c)
+
+
+@pytest.mark.parametrize(
+    "tile_px,gf,early_exit",
+    [(32, 2, True), (64, 2, True), (8, 4, True), (4, 4, False), (6, 3, True), (16, 5, True),
+     (16, 1, False)],
+)
+def test_fused_raster_kernel_odd_shapes_vs_plain(cuda_device, tile_px, gf, early_exit):
+    """Shapes off the main path: tiles of 8 and 32 warps (32 and 64 px, a
+    group split over 4 blocks at 64 px), one warp at 2 or 1 pixels a thread
+    (8 px), tiles that leave part of a warp idle (4 and 6 px), 25 member
+    tiles (two blocks) and one member tile. Seeded random masks over the
+    _case features."""
+    _, _, _, _, feat, _ = _case()
+    G, K = 6, feat.shape[-1]
+    feat = feat[:G].contiguous()
+    rng = np.random.default_rng(tile_px * 100 + gf)
+    masks = torch.from_numpy(rng.integers(0, 2 ** (gf * gf), (G, K), dtype=np.int64)
+                             .astype(np.int32))
+    origins = torch.tensor([[(g % 3) * 64 + 8.0, (g // 3) * 64 + 8.0] for g in range(G)])
+    kw = dict(chunk=32, early_exit=early_exit, tile_capacity=None)
+    want, want_c = raster_group_fused_plain(feat, masks, origins, tile_px, gf, **kw)
+    got, got_c = raster_group_fused_kernel(feat.to(cuda_device), masks.to(cuda_device),
+                                           origins.to(cuda_device), tile_px, gf, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (G, gf * gf, 4, tile_px * tile_px)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got_c.cpu(), want_c)
+    assert int(want_c[..., 1].sum()) > 0
 
 
 @pytest.mark.parametrize("tile,early_exit", [(16, True), (16, False), (32, True), (64, True)])

@@ -21,6 +21,7 @@ from repro.kernels.raster_tile import raster_tile_kernel as pallas_tile
 from repro_torch.core.grouping import GridSpec
 from repro_torch.core.raster import rasterize
 from repro_torch.kernels import ops
+from repro_torch.kernels.layout import F_CONIC_A, F_CONIC_C, F_OPACITY, F_VALID
 from repro_torch.kernels.raster_tile import (
     raster_group_fused_kernel,
     raster_tile_kernel,
@@ -56,21 +57,54 @@ def test_rasterize_matches_reference(early_exit):
     np.testing.assert_array_equal(n(got.processed), np.asarray(want.processed))
 
 
-@pytest.mark.parametrize("gf,tile_capacity", [(4, None), (2, None), (4, 9)])
-def test_plain_fused_raster_vs_pallas(gf, tile_capacity):
-    """tile_capacity=9 exercises the virtual FIFO clamp."""
+def _with_opacity(feat, variant):
+    """The packed group block with its opacity row rewritten: "opaque" sets
+    every valid entry to 0.99 and widens every splat tenfold (conic / 100),
+    so member tiles die mid-list; "zero_opacity" sets every third entry to 0
+    and every fifth to -0.25, so entries with opacity <= 0 are streamed (and
+    take FIFO slots) but never blended."""
+    feat = np.array(feat)
+    op, valid = feat[:, F_OPACITY], feat[:, F_VALID] > 0.5
+    k = np.arange(feat.shape[-1])
+    if variant == "opaque":
+        op = np.where(valid, np.float32(0.99), np.float32(0.0))
+        feat[:, F_CONIC_A:F_CONIC_C + 1] *= np.float32(0.01)
+    elif variant == "zero_opacity":
+        op = np.where(k % 3 == 0, np.float32(0.0), np.where(k % 5 == 0, np.float32(-0.25), op))
+    feat[:, F_OPACITY] = op
+    return feat
+
+
+@pytest.mark.parametrize(
+    "gf,tile_capacity,chunk,variant",
+    [
+        pytest.param(4, None, 128, None, id="4-None"),
+        pytest.param(2, None, 128, None, id="2-None"),
+        pytest.param(4, 9, 128, None, id="4-9"),  # the virtual FIFO clamp
+        pytest.param(1, None, 128, None, id="gf1"),  # one member tile a group
+        # chunk = K: one early-exit test, at the start
+        pytest.param(4, None, 256, None, id="chunk_is_K"),
+        pytest.param(4, None, 32, "opaque", id="opaque"),  # member tiles die mid-list
+        # opacity <= 0 entries are streamed and count toward kept
+        pytest.param(4, 9, 32, "zero_opacity", id="zero_opacity_clamped"),
+    ],
+)
+def test_plain_fused_raster_vs_pallas(gf, tile_capacity, chunk, variant):
     proj, jgrid, grid, gtable, masks, _ = _tables(gf=gf)
-    feat = jpack(proj, gtable.gauss_idx, gtable.entry_valid)
+    feat = _with_opacity(jpack(proj, gtable.gauss_idx, gtable.entry_valid), variant)
+    assert feat.shape[-1] % chunk == 0
     origins = jops.group_origins(jgrid)
-    want, want_c = pallas_fused(feat, masks.masks, origins, 16, gf, chunk=128,
+    want, want_c = pallas_fused(feat, masks.masks, origins, 16, gf, chunk=chunk,
                                 interpret=True, tile_capacity=tile_capacity,
                                 with_stats=True)
     got, got_c = raster_group_fused_kernel(
         t(feat), t(np.asarray(masks.masks).view(np.int32)), ops.group_origins(grid), 16, gf,
-        chunk=128, tile_capacity=tile_capacity,
+        chunk=chunk, tile_capacity=tile_capacity,
     )
     np.testing.assert_allclose(n(got), np.asarray(want), **TOL)
     np.testing.assert_array_equal(n(got_c), np.asarray(want_c))
+    if variant == "opaque":
+        assert (n(got)[:, :, 3] <= 1e-4).all(-1).any()  # some member tiles died
 
 
 @pytest.mark.parametrize("early_exit", [True, False])
