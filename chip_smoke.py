@@ -18,6 +18,14 @@ line each:
                 masks, bit for bit (rgb and counters with early exit, all
                 four rows without), and out-of-image member tiles rgb 0,
                 T 1, counts 0.
+     bgm_edge_cases — the BGM kernel against its plain version on the
+                package's edge_case_block, gf 1-5 x tile 8 and 16 x 3
+                methods, bit for bit.
+     wide_chunk — chunk 2048 on a small frame whose group lists pass 1,024
+                entries: the fused kernel, the tile kernel over the
+                compacted lists and over the group lists as 64-px tiles
+                against their plain versions (rgb and counters as above, T
+                within 1e-4 relative), and fused_vs_tile.
      gsm      — the GSM entry point ops.sort_groups_bitonic on the main
                 frame's group lists (527 x 8192, rows permuted): keys and
                 payload bitwise equal to the plain network, keys bitwise
@@ -78,7 +86,10 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 # float32 operations of one test, counted from the CUDA sources: a boundary
 # test per (entry, member tile), an alpha test per (pixel, entry) and a blend
-# per contributing (pixel, entry). expf counts as one.
+# per contributing (pixel, entry). expf counts as one. The boundary counts
+# are those of the per-tile form (core/boundary.py); the BGM kernel shares
+# tile-line work between neighbouring tiles and does fewer, so its bound
+# stays comparable across versions rather than tight.
 OPS_PER_TEST = {"aabb": 8, "obb": 54, "ellipse": 75}
 # Bytes the kernels need from these inputs: the valid row over the whole
 # padded list (it says which entries are live), the other rows a kernel reads
@@ -87,40 +98,63 @@ ENTRY_ROWS = {"aabb": 3, "obb": 6, "ellipse": 5}  # mean x/y + the method's rows
 RASTER_ROWS = 9   # mean x/y, conic a/b/c, opacity, rgb
 OPS_PER_ALPHA = 17
 OPS_PER_BLEND = 9
+# wide_chunk: the cuda tests' 20,000-gaussian frame, lists up to ~2,400.
+WIDE_CHUNK, WIDE_GAUSSIANS, WIDE_SIZE = 2048, 20_000, (256, 192)
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def ptxas_instances(build, source: str, pattern: str, label) -> dict:
+    """Registers, shared memory and spills of each compiled instance of a
+    kernel in ``csrc/<source>.cu``, from the ptxas report beside its
+    library: ``pattern`` matches the instance's mangled name and ``label``
+    names it from the match."""
+    instances = {}
+    log = Path(f"{build.library_path(source)}.log")
+    if log.exists():
+        name = None
+        for line in log.read_text().splitlines():
+            m = re.search(pattern, line)
+            if "Compiling entry function" in line:
+                name = label(m) if m else None
+            elif name and "spill" in line:
+                instances.setdefault(name, {})["spills"] = line.strip()
+            elif name and "Used" in line:
+                regs = re.search(r"Used (\d+) registers", line)
+                smem = re.search(r"(\d+) bytes smem", line)
+                instances.setdefault(name, {}).update(
+                    registers=int(regs.group(1)) if regs else None,
+                    smem_bytes=int(smem.group(1)) if smem else 0)
+    return instances
+
+
 def fused_build_report(build) -> dict:
     """The fused raster kernel as built: its block shape (from the source's
-    constants) and, per instance, registers and shared memory from the
-    ptxas report beside the library. NPIX is pixels a thread; FULL says
-    every pixel slot lies in the tile."""
+    constants) and, per instance, registers and shared memory. NPIX is
+    pixels a thread; FULL says every pixel slot lies in the tile."""
     src = (build.CSRC / "raster_tile.cu").read_text()
     warps = int(re.search(r"constexpr int FUSED_WARPS = (\d+);", src).group(1))
     pix = int(re.search(r"constexpr int MAX_PIX_PER_THREAD = (\d+);", src).group(1))
     tile_px = CFG_KW["tile"]
     per_tile = -(-tile_px * tile_px // (32 * pix))
-    report = {"block_threads": 32 * warps, "warps_per_tile": per_tile,
-              "tiles_per_block": warps // per_tile, "instances": {}}
-    log = Path(f"{build.library_path('raster_tile')}.log")
-    if log.exists():
-        name = None
-        for line in log.read_text().splitlines():
-            m = re.search(r"raster_group_fusedILi(\d+)ELb([01])E", line)
-            if "Compiling entry function" in line:
-                name = f"NPIX={m.group(1)},FULL={m.group(2)}" if m else None
-            elif name and "spill" in line:
-                report["instances"].setdefault(name, {})["spills"] = line.strip()
-            elif name and "Used" in line:
-                regs = re.search(r"Used (\d+) registers", line)
-                smem = re.search(r"(\d+) bytes smem", line)
-                report["instances"].setdefault(name, {}).update(
-                    registers=int(regs.group(1)) if regs else None,
-                    smem_bytes=int(smem.group(1)) if smem else 0)
-    return report
+    return {"block_threads": 32 * warps, "warps_per_tile": per_tile,
+            "tiles_per_block": warps // per_tile,
+            "instances": ptxas_instances(
+                build, "raster_tile", r"raster_group_fusedILi(\d+)ELb([01])E",
+                lambda m: f"NPIX={m.group(1)},FULL={m.group(2)}")}
+
+
+def bgm_build_report(build, methods) -> dict:
+    """The BGM kernel as built: its block size and, per (gf, method)
+    instance, registers, shared memory and spills."""
+    src = (build.CSRC / "bitmask_gen.cu").read_text()
+    threads = int(re.search(r"constexpr int THREADS = (\d+);", src).group(1))
+    return {"block_threads": threads,
+            "instances": ptxas_instances(
+                build, "bitmask_gen", r"bitmask_gen_kernelILi(\d+)ELi(\d+)E",
+                lambda m: f"GF={m.group(1)},{methods[int(m.group(2))]}")}
 
 
 def main() -> int:
@@ -156,11 +190,17 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     from repro_torch.kernels import build
     from repro_torch.configs import PAPER_SCENES
     from repro_torch.core import GridSpec, RenderConfig, make_camera, render, scene_like_paper
+    from repro_torch.core.gaussians import random_scene
     from repro_torch.core.bitmask import GroupBitmasks, compact_tiles
     from repro_torch.core.pipeline import render_frontend
     from repro_torch.core.stages import get_backend
     from repro_torch.kernels import ops
-    from repro_torch.kernels.bitmask_gen import KERNEL_METHODS, bitmask_kernel, bitmask_plain
+    from repro_torch.kernels.bitmask_gen import (
+        KERNEL_METHODS,
+        bitmask_kernel,
+        bitmask_plain,
+        edge_case_block,
+    )
     from repro_torch.kernels.bitonic_sort import bitonic_sort_kernel, bitonic_sort_plain
     from repro_torch.kernels.layout import LANE, pack_features
     from repro_torch.kernels.raster_tile import (
@@ -221,7 +261,8 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
           "count": count, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
           "build_wall_s": round(build_wall, 3), "ptxas": ptxas,
-          "raster_group_fused": fused_build_report(build)})
+          "raster_group_fused": fused_build_report(build),
+          "bitmask_gen": bgm_build_report(build, KERNEL_METHODS)})
 
     # -- main-path inputs ------------------------------------------------------
     spec = PAPER_SCENES["train"]
@@ -264,16 +305,43 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
             kernels["bitmask_gen"] = dict(
                 max_abs_err=float(bad), ms=ms, plain_ms=plain_ms, nbytes=nbytes, ops=ops_n)
 
-    def raster_compare(name, run_k, run_p, n_outputs_bytes, in_bytes):
-        out_k, cnt_k = run_k()
-        out_p, cnt_p = run_p()
-        sync()
+    # The package's edge-case block: every compiled instance, bit for bit.
+    edge = {"cases": 0, "words": 0, "differing_words": 0, "differing_cases": []}
+    for gf in range(1, 6):
+        for tile_px in (8, 16):
+            block = edge_case_block(gf, tile_px, torch.Generator().manual_seed(7))
+            f_e, o_e, i_e = (x.to(dev) for x in block)
+            for method in KERNEL_METHODS:
+                got = bitmask_kernel(f_e, o_e, i_e, tile_px, gf, method)
+                want = bitmask_plain(f_e, o_e, i_e, tile_px, gf, method)
+                bad = int((got != want).sum())
+                edge["cases"] += 1
+                edge["words"] += got.numel()
+                edge["differing_words"] += bad
+                if bad:
+                    edge["differing_cases"].append(f"gf={gf},tile={tile_px},{method}: {bad}")
+    emit({"phase": "kernel", "kernel": "bitmask_gen", "check": "bgm_edge_cases", **edge})
+    check(edge["differing_words"] == 0, f"bgm_edge_cases: {edge['differing_cases']}")
+
+    def agreement(out_k, cnt_k, out_p, cnt_p):
+        """Kernel against plain: max-abs error, counter totals and their
+        relative difference, tiles whose counters differ, and T values off
+        by more than 1e-4 relative (1e-30 absolute)."""
         err = float((out_k - out_p).abs().max())
         ck = cnt_k.to(torch.int64).reshape(-1, 2)
         cp = cnt_p.to(torch.int64).reshape(-1, 2)
         tot_k, tot_p = ck.sum(0).tolist(), cp.sum(0).tolist()
         rel = [abs(a - b) / max(b, 1) for a, b in zip(tot_k, tot_p)]
         flips = int((ck != cp).any(1).sum())
+        t_k, t_p = out_k[..., 3, :], out_p[..., 3, :]
+        t_off = int(((t_k - t_p).abs() > 1e-30 + 1e-4 * t_p.abs()).sum())
+        return err, tot_k, tot_p, rel, flips, t_off
+
+    def raster_compare(name, run_k, run_p, n_outputs_bytes, in_bytes):
+        out_k, cnt_k = run_k()
+        out_p, cnt_p = run_p()
+        sync()
+        err, tot_k, tot_p, rel, flips, _ = agreement(out_k, cnt_k, out_p, cnt_p)
         ms = time_ms(run_k)
         plain_ms = time_ms(run_p, reps=3)
         alpha_ops, blend_ops = tot_k
@@ -314,36 +382,93 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
         (NT * KT + RASTER_ROWS * tile_live) * 4 + torigins.numel() * 4,
     )
 
-    # The tile kernel over the compacted lists is the fused kernel's oracle
-    # on the card: rgb and counters bit for bit, and the transmittance too
-    # without early exit (with it, each stops at a chunk boundary of its own
-    # list). Member tiles outside the image stream nothing.
-    gtile, in_image = ops.member_tiles(grid, dev)
-    gidx = gtile[in_image].long()
-    fused_vs_tile = {}
-    for early_exit in (True, False):
-        out_f, cnt_f = raster_group_fused_kernel(
-            feat, masks_main, origins, grid.tile, grid.gf, chunk=cfg.chunk,
-            early_exit=early_exit, tile_capacity=cfg.tile_capacity)
-        out_t, cnt_t = raster_tile_kernel(tfeat, torigins, grid.tile, chunk=cfg.chunk,
-                                          early_exit=early_exit)
-        sync()
-        rows = 3 if early_exit else 4
-        differ = ((bits(out_f[in_image][:, :rows]) != bits(out_t[gidx][:, :rows]))
-                  .flatten(1).any(1) | (cnt_f[in_image] != cnt_t[gidx]).any(1))
-        outside = out_f[~in_image]
-        not_empty = ((outside[:, :3] != 0).flatten(1).any(1) | (outside[:, 3] != 1).any(1)
-                     | (cnt_f[~in_image] != 0).any(1))
-        key = "early_exit" if early_exit else "no_early_exit"
-        fused_vs_tile[key] = {"rows": rows, "tiles_compared": int(in_image.sum()),
-                              "tiles_differing": int(differ.sum()),
-                              "outside_tiles": int((~in_image).sum()),
-                              "outside_not_empty": int(not_empty.sum())}
-        check(int(differ.sum()) == 0 and int(not_empty.sum()) == 0,
-              f"fused_vs_tile[{key}]: {fused_vs_tile[key]}")
+    def fused_vs_tile(feat, masks, origins, tfeat, torigins, grid, chunk, tile_capacity,
+                      what="fused_vs_tile"):
+        """The tile kernel over the compacted lists is the fused kernel's
+        oracle on the card: rgb and counters bit for bit, and the
+        transmittance too without early exit (with it, each stops at a chunk
+        boundary of its own list). Member tiles outside the image stream
+        nothing."""
+        gtile, in_image = ops.member_tiles(grid, dev)
+        gidx = gtile[in_image].long()
+        result = {}
+        for early_exit in (True, False):
+            out_f, cnt_f = raster_group_fused_kernel(
+                feat, masks, origins, grid.tile, grid.gf, chunk=chunk,
+                early_exit=early_exit, tile_capacity=tile_capacity)
+            out_t, cnt_t = raster_tile_kernel(tfeat, torigins, grid.tile, chunk=chunk,
+                                              early_exit=early_exit)
+            sync()
+            rows = 3 if early_exit else 4
+            differ = ((bits(out_f[in_image][:, :rows]) != bits(out_t[gidx][:, :rows]))
+                      .flatten(1).any(1) | (cnt_f[in_image] != cnt_t[gidx]).any(1))
+            outside = out_f[~in_image]
+            not_empty = ((outside[:, :3] != 0).flatten(1).any(1) | (outside[:, 3] != 1).any(1)
+                         | (cnt_f[~in_image] != 0).any(1))
+            key = "early_exit" if early_exit else "no_early_exit"
+            result[key] = {"rows": rows, "tiles_compared": int(in_image.sum()),
+                           "tiles_differing": int(differ.sum()),
+                           "outside_tiles": int((~in_image).sum()),
+                           "outside_not_empty": int(not_empty.sum())}
+            check(int(differ.sum()) == 0 and int(not_empty.sum()) == 0,
+                  f"{what}[{key}]: {result[key]}")
+        return result
+
     emit({"phase": "kernel", "kernel": "raster_group_fused", "check": "fused_vs_tile",
-          **fused_vs_tile})
-    del tfeat, ttable, feat, out_f, out_t, cnt_f, cnt_t
+          **fused_vs_tile(feat, masks_main, origins, tfeat, torigins, grid, cfg.chunk,
+                          cfg.tile_capacity)})
+    del tfeat, ttable, feat
+
+    # -- wide_chunk: chunk 2048, past the 1,024 entries the tile kernel
+    # stages at once, on a small frame whose group lists pass 1,024. --------
+    w_w, w_h = WIDE_SIZE
+    w_cfg = RenderConfig(backend="cuda", **{**CFG_KW, "group_capacity": 4096,
+                                            "tile_capacity": 4096, "chunk": WIDE_CHUNK})
+    w_scene = random_scene(WIDE_GAUSSIANS, extent=3.0,
+                           generator=torch.Generator().manual_seed(4)).to(dev)
+    w_front = render_frontend(w_scene, make_camera((0.0, 1.2, 5.0), (0, 0, 0), w_w, w_h),
+                              w_cfg)
+    w_grid = GridSpec(w_w, w_h, w_cfg.tile, w_cfg.group, w_cfg.span)
+    w_table, w_pad = w_front.table, math.lcm(LANE, WIDE_CHUNK)
+    w_feat = pack_features(w_front.proj, w_table.gauss_idx, w_table.entry_valid, multiple=w_pad)
+    w_origins = ops.group_origins(w_grid, dev)
+    w_masks = bitmask_kernel(w_feat, w_origins, ops.tiles_in_image(w_grid, dev), w_grid.tile,
+                             w_grid.gf, w_cfg.boundary_tile)
+    w_ttable = compact_tiles(w_table, GroupBitmasks(w_masks[:, :w_table.capacity], None),
+                             w_grid, w_cfg.tile_capacity)
+    w_tfeat = pack_features(w_front.proj, w_ttable.gauss_idx, w_ttable.entry_valid,
+                            multiple=w_pad)
+    w_torigins = ops.tile_origins(w_grid, dev)
+    w_kw = dict(chunk=WIDE_CHUNK)
+    wide = {"shape": list(w_feat.shape), "max_group_len": int(w_table.lengths.max()),
+            "max_tile_len": int(w_ttable.lengths.max())}
+    runs = {
+        "raster_group_fused": lambda **kw: (
+            raster_group_fused_kernel(w_feat, w_masks, w_origins, w_grid.tile, w_grid.gf, **kw),
+            raster_group_fused_plain(w_feat, w_masks, w_origins, w_grid.tile, w_grid.gf, **kw)),
+        "raster_tile": lambda **kw: (
+            raster_tile_kernel(w_tfeat, w_torigins, w_grid.tile, **kw),
+            raster_tile_plain(w_tfeat, w_torigins, w_grid.tile, **kw)),
+        "raster_tile_64px_group_lists": lambda **kw: (
+            raster_tile_kernel(w_feat, w_origins, w_grid.group, **kw),
+            raster_tile_plain(w_feat, w_origins, w_grid.group, **kw)),
+    }
+    for name, run_both in runs.items():
+        for early_exit in (True, False):
+            (out_k, cnt_k), (out_p, cnt_p) = run_both(early_exit=early_exit, **w_kw)
+            sync()
+            err, tot_k, _, rel, _, t_off = agreement(out_k, cnt_k, out_p, cnt_p)
+            key = f"{name}[{'early_exit' if early_exit else 'no_early_exit'}]"
+            wide[key] = {"max_abs_err": err, "counter_rel_diff": rel, "t_off": t_off,
+                         "blend_ops": tot_k[1]}
+            check(err <= IMAGE_TOL and max(rel) <= COUNTER_RTOL and t_off == 0
+                  and tot_k[1] > 0, f"wide_chunk {key}: {wide[key]}")
+    wide["fused_vs_tile"] = fused_vs_tile(w_feat, w_masks, w_origins, w_tfeat, w_torigins,
+                                          w_grid, WIDE_CHUNK, w_cfg.tile_capacity,
+                                          "wide_chunk fused_vs_tile")
+    emit({"phase": "kernel", "check": "wide_chunk", "chunk": WIDE_CHUNK, **wide})
+    check(wide["max_group_len"] > 1024, f"wide_chunk: lists reach only {wide['max_group_len']}")
+    del w_scene, w_front, w_table, w_feat, w_masks, w_ttable, w_tfeat
 
     # -- gsm: the bitonic sort on the main frame's group lists -----------------
     gvalid = gtable.entry_valid

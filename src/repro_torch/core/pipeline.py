@@ -121,8 +121,8 @@ def _grid(cam, cfg: RenderConfig) -> GridSpec:
 
 
 def check_config(cfg: RenderConfig) -> None:
-    """Raise for a mode the port does not know or a feature it has not
-    ported yet."""
+    """Raise for a mode the port does not know, a feature it has not ported
+    yet, or a gstg grid whose member tiles outgrow the 32-bit tile mask."""
     if cfg.scene_shards != 1:
         raise NotImplementedError(
             "scene_shards != 1 is not ported yet (ROADMAP queue 1, item 8: "
@@ -135,6 +135,14 @@ def check_config(cfg: RenderConfig) -> None:
         )
     if cfg.mode not in MODES:
         raise ValueError(f"unknown mode {cfg.mode!r}")
+    tpg = (cfg.group // cfg.tile) ** 2
+    if cfg.mode == "gstg" and tpg > 32:
+        # The JAX package renders this case wrong (it drops member tiles 32
+        # and up), so the port refuses it rather than copy that.
+        raise ValueError(
+            f"gstg needs at most 32 member tiles a group, one bit each in the 32-bit "
+            f"tile mask; tile {cfg.tile} and group {cfg.group} give {tpg}"
+        )
 
 
 def render(

@@ -23,9 +23,15 @@
 // alive. Stopping changes no rgb value and no counter, only the final T.
 //
 // The tile kernel: one block per tile, one thread per pixel (1, 4 or 16
-// pixels a thread when a tile has more than 256). Each chunk is staged once
-// into shared memory between two block-wide barriers and every thread walks
-// it in order. It walks only up to the list's last entry with opacity > 0.
+// pixels a thread when a tile has more than 256). Each chunk is staged into
+// shared memory between two block-wide barriers and every thread walks it
+// in order. A chunk longer than PIECE entries is staged in pieces of PIECE
+// (the PIECES instances, chosen on the host); the early-exit vote stays at
+// the chunk's start, never at a piece's, so any chunk that divides K runs
+// and stops where the plain version stops. A chunk that fits is staged
+// whole with its size as the row stride, as before: a piece loop for every
+// chunk read slower on the main frame's lists (PERF.md). It walks only up
+// to the list's last entry with opacity > 0.
 //
 // The fused kernel. The first design ran one block per (group, member tile).
 // On the main frame (527 groups of up to 8,192 slots, 16 member tiles) each
@@ -87,7 +93,7 @@ constexpr float QMAX = 9.0f;
 // Staged words per entry: the feature rows F_MEAN_X .. F_RGB_B.
 constexpr int ROWS = 9;
 constexpr int MAX_THREADS = 256;  // tile kernel
-constexpr int MAX_CHUNK = 1024;   // ROWS * 1024 * 4 bytes < 48 KB static limit
+constexpr int PIECE = 1024;       // tile kernel: ROWS * 1024 * 4 bytes < 48 KB
 
 constexpr int FUSED_WARPS = 32;  // a fused block: 1,024 threads
 constexpr int FUSED_THREADS = 32 * FUSED_WARPS;
@@ -137,8 +143,9 @@ __device__ __forceinline__ void blend_step(const Entry& e, float px, float py, b
 
 // ---------------------------------------------------------------------------
 // Tile kernel: one block rasterizes one tile of NPIX * blockDim.x pixels over
-// the list f (16, K), writing out (4, P) and counts (2).
-template <int NPIX>
+// the list f (16, K), writing out (4, P) and counts (2). PIECES: chunk >
+// PIECE, staged in pieces.
+template <int NPIX, bool PIECES>
 __device__ __forceinline__ void raster_body(const float* __restrict__ f, int K, float ox,
                                             float oy, int tile_px, int chunk, bool early_exit,
                                             float* __restrict__ out,
@@ -179,7 +186,8 @@ __device__ __forceinline__ void raster_body(const float* __restrict__ f, int K, 
   }
   int a_ops = 0, b_ops = 0;
 
-  float* s_row = smem;  // ROWS rows of `chunk` words
+  float* s_row = smem;  // ROWS rows of `stride` words
+  const int stride = PIECES ? PIECE : chunk;
   for (int c0 = 0; c0 < n_walk; c0 += chunk) {
     bool any_live = true;
     if (early_exit) {
@@ -191,19 +199,26 @@ __device__ __forceinline__ void raster_body(const float* __restrict__ f, int K, 
       __syncthreads();
     }
     if (!any_live) break;  // uniform across the block
-    for (int i = tid; i < chunk; i += nthreads) {
+    // A chunk longer than PIECE in pieces, with no vote at a piece's start.
+    int p0 = c0;
+    do {
+      const int n = PIECES ? min(PIECE, c0 + chunk - p0) : chunk;
+      if (PIECES && p0 > c0) __syncthreads();  // the piece before has been walked
+      for (int i = tid; i < n; i += nthreads) {
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) s_row[r * chunk + i] = f[(size_t)r * K + c0 + i];
-    }
-    __syncthreads();
-    for (int i = 0; i < chunk; ++i) {
-      if (s_row[F_OPACITY * chunk + i] <= 0.0f) continue;  // alpha 0 and not counted
-      const Entry e = load_entry(s_row, chunk, i);
-#pragma unroll
-      for (int j = 0; j < NPIX; ++j) {
-        blend_step(e, px[j], py[j], true, early_exit, T[j], cr[j], cg[j], cb[j], a_ops, b_ops);
+        for (int r = 0; r < ROWS; ++r) s_row[r * stride + i] = f[(size_t)r * K + p0 + i];
       }
-    }
+      __syncthreads();
+      for (int i = 0; i < n; ++i) {
+        if (s_row[F_OPACITY * stride + i] <= 0.0f) continue;  // alpha 0 and not counted
+        const Entry e = load_entry(s_row, stride, i);
+#pragma unroll
+        for (int j = 0; j < NPIX; ++j) {
+          blend_step(e, px[j], py[j], true, early_exit, T[j], cr[j], cg[j], cb[j], a_ops,
+                     b_ops);
+        }
+      }
+    } while (PIECES && (p0 += PIECE) < c0 + chunk);
   }
 
 #pragma unroll
@@ -223,16 +238,16 @@ __device__ __forceinline__ void raster_body(const float* __restrict__ f, int K, 
   }
 }
 
-template <int NPIX>
+template <int NPIX, bool PIECES>
 __global__ void __launch_bounds__(MAX_THREADS)
 raster_tile(const float* __restrict__ feat, const float* __restrict__ origin,
             float* __restrict__ out, int32_t* __restrict__ counts, int K,
             int tile_px, int chunk, int early_exit) {
   const int t = blockIdx.x;
   const int P = tile_px * tile_px;
-  raster_body<NPIX>(feat + (size_t)t * NUM_FEATURES * K, K, origin[2 * t], origin[2 * t + 1],
-                    tile_px, chunk, early_exit != 0, out + (size_t)t * 4 * P,
-                    counts + (size_t)t * 2);
+  raster_body<NPIX, PIECES>(feat + (size_t)t * NUM_FEATURES * K, K, origin[2 * t],
+                            origin[2 * t + 1], tile_px, chunk, early_exit != 0,
+                            out + (size_t)t * 4 * P, counts + (size_t)t * 2);
 }
 
 // ---------------------------------------------------------------------------
@@ -554,7 +569,7 @@ int pixels_per_thread(int P) {
 }
 
 bool bad_args(int B, int K, int tile_px, int chunk) {
-  return B <= 0 || K <= 0 || chunk <= 0 || chunk > MAX_CHUNK || K % chunk != 0 ||
+  return B <= 0 || K <= 0 || chunk <= 0 || K % chunk != 0 ||
          pixels_per_thread(tile_px * tile_px) == 0;
 }
 
@@ -578,6 +593,23 @@ void launch_fused(bool full, const float* feat, const uint32_t* masks, const flo
   } else {
     launch_fused<NPIX, false>(feat, masks, origin, out, counts, G, K, tile_px, gf, chunk,
                               tile_capacity, early_exit, wpt, s);
+  }
+}
+
+template <bool PIECES>
+void launch_tile(int npix, const float* feat, const float* origin, float* out, int32_t* counts,
+                 int N, int K, int tile_px, int chunk, int early_exit, cudaStream_t s) {
+  const int P = tile_px * tile_px;
+  const size_t smem = (size_t)ROWS * (PIECES ? PIECE : chunk) * sizeof(float);
+  if (npix == 1) {
+    raster_tile<1, PIECES><<<N, P, smem, s>>>(feat, origin, out, counts, K, tile_px, chunk,
+                                              early_exit);
+  } else if (npix == 4) {
+    raster_tile<4, PIECES><<<N, P / 4, smem, s>>>(feat, origin, out, counts, K, tile_px, chunk,
+                                                  early_exit);
+  } else {
+    raster_tile<16, PIECES><<<N, P / 16, smem, s>>>(feat, origin, out, counts, K, tile_px,
+                                                    chunk, early_exit);
   }
 }
 
@@ -627,14 +659,12 @@ int raster_tile_launch(const float* feat, const float* origin, float* out,
                        int early_exit, void* stream) {
   if (bad_args(N, K, tile_px, chunk)) return (int)cudaErrorInvalidValue;
   const int P = tile_px * tile_px, npix = pixels_per_thread(P);
-  const size_t smem = (size_t)ROWS * chunk * sizeof(float);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (npix == 1) {
-    raster_tile<1><<<N, P, smem, s>>>(feat, origin, out, counts, K, tile_px, chunk, early_exit);
-  } else if (npix == 4) {
-    raster_tile<4><<<N, P / 4, smem, s>>>(feat, origin, out, counts, K, tile_px, chunk, early_exit);
+  if (chunk > PIECE) {
+    launch_tile<true>(npix, feat, origin, out, counts, N, K, tile_px, chunk, early_exit,
+                      (cudaStream_t)stream);
   } else {
-    raster_tile<16><<<N, P / 16, smem, s>>>(feat, origin, out, counts, K, tile_px, chunk, early_exit);
+    launch_tile<false>(npix, feat, origin, out, counts, N, K, tile_px, chunk, early_exit,
+                       (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

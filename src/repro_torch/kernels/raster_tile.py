@@ -48,7 +48,6 @@ ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
 QMAX = 9.0
-MAX_CHUNK = 1024  # the CUDA tile kernel stages 9 words x chunk in shared memory
 
 _P, _I = build.P, build.I
 _SIGNATURES = {
@@ -252,8 +251,6 @@ def _check_cuda(feat, chunk, what):
     if F != NUM_FEATURES or feat.dtype != torch.float32 or not feat.is_contiguous():
         raise ValueError(f"{what}: feat must be contiguous (B, 16, K) float32")
     _check_chunk(feat, chunk)
-    if chunk > MAX_CHUNK:
-        raise ValueError(f"{what}: chunk {chunk} exceeds {MAX_CHUNK}")
     return B, K
 
 

@@ -30,7 +30,7 @@ from repro_torch.core.bitmask import GroupBitmasks, compact_tiles, generate_bitm
 from repro_torch.core.gaussians import random_scene
 from repro_torch.core.grouping import GridSpec
 from repro_torch.kernels import build, ops
-from repro_torch.kernels.bitmask_gen import bitmask_kernel, bitmask_plain
+from repro_torch.kernels.bitmask_gen import bitmask_kernel, bitmask_plain, edge_case_block
 from repro_torch.kernels.bitonic_sort import bitonic_sort_kernel, bitonic_sort_plain
 from repro_torch.kernels.layout import (
     F_CONIC_A,
@@ -55,13 +55,14 @@ CFG = pipeline.RenderConfig(group_capacity=512, tile_capacity=256, span=4, chunk
 
 
 @functools.lru_cache(maxsize=None)
-def _case(gf=4):
-    """CPU frontend output of a seeded 3,000-gaussian scene."""
-    scene = random_scene(3000, extent=3.0, generator=torch.Generator().manual_seed(4))
+def _case(gf=4, tile=16, gaussians=3000, capacity=512, chunk=32):
+    """CPU frontend output of a seeded scene (3,000 gaussians unless asked)."""
+    scene = random_scene(gaussians, extent=3.0, generator=torch.Generator().manual_seed(4))
     cam = camera.make_camera((0.0, 1.2, 5.0), (0, 0, 0), W, H)
-    cfg = dataclasses.replace(CFG, group=16 * gf)
+    cfg = dataclasses.replace(CFG, tile=tile, group=tile * gf, group_capacity=capacity,
+                              chunk=chunk)
     front = pipeline.render_frontend(scene, cam, cfg)
-    grid = GridSpec(W, H, 16, 16 * gf, span=4)
+    grid = GridSpec(W, H, tile, tile * gf, span=4)
     table = front.table
     feat = pack_features(front.proj, table.gauss_idx, table.entry_valid,
                          multiple=math.lcm(LANE, cfg.chunk))
@@ -71,18 +72,38 @@ def _case(gf=4):
 
 
 @pytest.mark.parametrize("method", ["aabb", "obb", "ellipse"])
-@pytest.mark.parametrize("gf", [2, 4])
-def test_bitmask_kernel_bit_exact(cuda_device, method, gf):
-    _, _, grid, _, feat, _ = _case(gf)
+@pytest.mark.parametrize("gf", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_bitmask_kernel_bit_exact(cuda_device, tile, gf, method):
+    """Every compiled instance (gf 1-5 x method) on scene lists at tiles of
+    8, 16 and 32 px; at 32 px and gf 3-5 some member tiles lie outside the
+    image."""
+    _, _, grid, _, feat, _ = _case(gf, tile)
     args = (ops.group_origins(grid), ops.tiles_in_image(grid))
-    want = bitmask_plain(feat, *args, 16, gf, method)
+    want = bitmask_plain(feat, *args, tile, gf, method)
     before = build.LAUNCHES["bitmask_gen"]
-    got = bitmask_kernel(feat.to(cuda_device), *(a.to(cuda_device) for a in args), 16, gf,
+    got = bitmask_kernel(feat.to(cuda_device), *(a.to(cuda_device) for a in args), tile, gf,
                          method)
     torch.cuda.synchronize()
     assert build.LAUNCHES["bitmask_gen"] == before + 1
     assert torch.equal(got.cpu(), want)
     assert bool(want.any())
+
+
+@pytest.mark.parametrize("method", ["aabb", "obb", "ellipse"])
+@pytest.mark.parametrize("gf", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("tile", [8, 16])
+def test_bitmask_kernel_edge_cases(cuda_device, tile, gf, method):
+    """The package's edge-case block (means on and one ulp off tile lines,
+    q = 9 exactly, degenerate and huge shapes, NaN and inf, subnormals,
+    member tiles outside the image, and a fractional origin that takes the
+    kernel's per-tile form): every word bitwise the plain version's."""
+    feat, origins, in_img = edge_case_block(gf, tile, torch.Generator().manual_seed(7))
+    want = bitmask_plain(feat, origins, in_img, tile, gf, method)
+    got = bitmask_kernel(feat.to(cuda_device), origins.to(cuda_device),
+                         in_img.to(cuda_device), tile, gf, method)
+    assert torch.equal(got.cpu(), want)
+    assert bool(want.any()) and not bool(want.all())
 
 
 @pytest.mark.parametrize(
@@ -190,6 +211,51 @@ def test_fused_raster_kernel_odd_shapes_vs_plain(cuda_device, tile_px, gf, early
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
     assert torch.equal(got_c.cpu(), want_c)
     assert int(want_c[..., 1].sum()) > 0
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+def test_raster_kernels_at_chunk_2048(cuda_device, early_exit):
+    """chunk 2048 on lists of up to 2,444 entries (20,000 gaussians, group
+    capacity 4096): the tile kernel stages a chunk in pieces of 1,024 and
+    votes on early exit only at the chunk's start. Both kernels against
+    their plain versions, the tile kernel also over the group lists as
+    64-px tiles (lists that span several pieces), and the fused kernel
+    against the tile kernel over the compacted lists, bit for bit. Against
+    plain: T within 1e-4 relative, so a stop one piece early would show;
+    rgb within 1e-4 and counter totals within 1e-5 relative, as chip_smoke
+    holds the main frame, since on lists this long an entry can flip at
+    the T_before > 1e-4 gate (moving its pixels by at most alpha * 1e-4)."""
+    chunk, dev = 2048, cuda_device
+    _, _, grid, front, feat, masks = _case(gaussians=20000, capacity=4096, chunk=chunk)
+    assert int(front.table.lengths.max()) > 1024 and int(front.table.overflow) == 0
+    f, m, origins = feat.to(dev), masks.to(dev), ops.group_origins(grid, dev)
+    kw = dict(chunk=chunk, early_exit=early_exit)
+
+    def check(got, want):
+        (out, counts), (want_out, want_counts) = got, want
+        torch.testing.assert_close(out[..., :3, :], want_out[..., :3, :], atol=1e-4, rtol=0)
+        torch.testing.assert_close(out[..., 3, :], want_out[..., 3, :], atol=1e-30, rtol=1e-4)
+        total = counts.reshape(-1, 2).sum(0).double()
+        want_total = want_counts.reshape(-1, 2).sum(0).double()
+        assert bool(((total - want_total).abs() <= 1e-5 * want_total).all())
+        assert int(want_total[1]) > 0
+
+    fused = raster_group_fused_kernel(f, m, origins, 16, 4, **kw)
+    check(fused, raster_group_fused_plain(f, m, origins, 16, 4, **kw))
+    check(raster_tile_kernel(f, origins, 64, **kw), raster_tile_plain(f, origins, 64, **kw))
+    table = front.table
+    ttable = compact_tiles(table, GroupBitmasks(masks[:, :table.capacity], None), grid,
+                           table.capacity)
+    tfeat = pack_features(front.proj, ttable.gauss_idx, ttable.entry_valid,
+                          multiple=math.lcm(LANE, chunk)).to(dev)
+    torigins = ops.tile_origins(grid, dev)
+    tile = raster_tile_kernel(tfeat, torigins, 16, **kw)
+    check(tile, raster_tile_plain(tfeat, torigins, 16, **kw))
+    gtile, in_image = ops.member_tiles(grid, dev)
+    rows = 3 if early_exit else 4
+    mine, oracle = fused[0][in_image][:, :rows], tile[0][gtile[in_image].long()][:, :rows]
+    assert torch.equal(_bits(mine), _bits(oracle))
+    assert torch.equal(fused[1][in_image], tile[1][gtile[in_image].long()])
 
 
 @pytest.mark.parametrize("tile,early_exit", [(16, True), (16, False), (32, True), (64, True)])

@@ -79,6 +79,43 @@ def test_cut_lists_break_losslessness_in_both_packages(jit_render_fn, backend):
     assert np.abs(port_gstg - port_tile).max() > 0.1
 
 
+# Tile 8 in groups of 64: 64 member tiles a group, past the 32-bit tile mask.
+GF8_CAM = dict(eye=(0.0, 1.1, 4.6), target=(0.0, 0.0, 0.0), width=64, height=64)
+GF8_CFG = dict(tile=8, group=64, group_capacity=512, tile_capacity=512, span=8)
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+@pytest.mark.parametrize("mode", ["tile_baseline", "group_baseline"])
+def test_baselines_render_with_64_member_tiles(jit_render_fn, mode, backend):
+    """The baselines take no member-tile mask, so they still render where
+    gstg is refused, and match the JAX package there."""
+    jscene = random_scene(jax.random.key(7), 400, extent=3.0)
+    _check_against_reference(jit_render_fn, jscene, GF8_CAM, dict(mode=mode, **GF8_CFG),
+                             backend)
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_gstg_refuses_more_than_32_member_tiles(small_scene, backend):
+    """One mask bit per member tile: gstg at 64 tiles a group raises on every
+    backend and entry point, CPU tensors included, instead of rendering wrong
+    masks (the JAX package drops member tiles 32 and up there)."""
+    cfg = pipeline.RenderConfig(backend=backend, **GF8_CFG)
+    cam = camera.make_camera(**GF8_CAM)
+    front = pipeline.render_frontend(small_scene, cam,
+                                     dataclasses.replace(cfg, mode="tile_baseline"))
+    calls = (
+        lambda: pipeline.render(small_scene, cam, cfg),
+        lambda: pipeline.render_frontend(small_scene, cam, cfg),
+        lambda: pipeline.render_backend(front, cam, cfg),
+        lambda: engine.open(small_scene, cfg, device="cpu"),
+    )
+    for call in calls:
+        with pytest.raises(ValueError, match="32-bit tile mask"):
+            call()
+    ok = dataclasses.replace(cfg, tile=16)  # 16 member tiles a group
+    assert pipeline.render(small_scene, cam, ok).stats.as_dict()["overflow"] == 0
+
+
 @pytest.fixture(scope="module")
 def small_scene():
     return scene_from_numpy(random_scene(jax.random.key(7), 400, extent=3.0), "cpu")
