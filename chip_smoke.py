@@ -84,13 +84,20 @@ REPS = 10
 # float32 operations/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
-# float32 operations of one test, counted from the CUDA sources: a boundary
-# test per (entry, member tile), an alpha test per (pixel, entry) and a blend
-# per contributing (pixel, entry). expf counts as one. The boundary counts
-# are those of the per-tile form (core/boundary.py); the BGM kernel shares
-# tile-line work between neighbouring tiles and does fewer, so its bound
-# stays comparable across versions rather than tight.
+# float32 operations, counted from the CUDA sources: an add, multiply,
+# division, square root, abs, min, max, compare or expf counts one; a
+# negation or a select nothing. The BGM kernel's shared form, per live entry
+# of a group: per entry, per tile column, per tile row, per tile, per
+# vertical and per horizontal tile line, per (vertical line, tile row) and
+# per (horizontal line, tile column) point. Work that depends on the group
+# alone (line positions, tile centres and half-sizes) counts nothing.
+BGM_OPS = {"aabb": (4, 2, 2, 0, 0, 0, 0, 0), "obb": (14, 11, 9, 8, 0, 0, 0, 0),
+           "ellipse": (7, 2, 2, 4, 6, 5, 8, 9)}
+# One whole boundary test per (entry, member tile), as core/boundary.py and
+# the BGM of PR 11 run it: reported beside the bound, for comparison with
+# the rows of earlier designs.
 OPS_PER_TEST = {"aabb": 8, "obb": 54, "ellipse": 75}
+# An alpha test per (pixel, entry) and a blend per contributing one.
 # Bytes the kernels need from these inputs: the valid row over the whole
 # padded list (it says which entries are live), the other rows a kernel reads
 # over the live entries only, and every output in full.
@@ -104,6 +111,25 @@ WIDE_CHUNK, WIDE_GAUSSIANS, WIDE_SIZE = 2048, 20_000, (256, 192)
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def bound(nbytes: float, ops: float):
+    """The least time for the work in ms, and what bounds it: the bytes
+    over the memory rate or the operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bgm_ops(method: str, live_per_group, in_img, gf: int) -> int:
+    """The BGM's operations on this data: each group's live entries times
+    the shared form's count over the tile lines and tiles that its in-image
+    member tiles (a cols x rows rectangle) need."""
+    e, col, row, tile, v_line, h_line, v_pt, h_pt = BGM_OPS[method]
+    m = in_img.reshape(-1, gf, gf).to("cpu")
+    c, r = m.any(1).sum(1).double(), m.any(2).sum(1).double()
+    per = (e + col * c + row * r + tile * c * r + v_line * (c + 1) + h_line * (r + 1)
+           + v_pt * (c + 1) * r + h_pt * (r + 1) * c)
+    return int((live_per_group.to("cpu").double() * per * (c * r > 0)).sum())
 
 
 def ptxas_instances(build, source: str, pattern: str, label) -> dict:
@@ -279,8 +305,9 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     origins = ops.group_origins(grid, dev)
     in_img = ops.tiles_in_image(grid, dev)
     G, _, Kp = feat.shape
-    live = int(gtable.entry_valid.sum())
-    valid_tests = int((gtable.entry_valid.sum(1) * in_img.sum(1)).sum())
+    live_per_group = gtable.entry_valid.sum(1)
+    live = int(live_per_group.sum())
+    valid_tests = int((live_per_group * in_img.sum(1)).sum())
 
     kernels = {}
 
@@ -295,10 +322,13 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
         plain_ms = time_ms(lambda: bitmask_plain(feat, origins, in_img, grid.tile, grid.gf, method))
         nbytes = ((G * Kp + ENTRY_ROWS[method] * live + G * Kp) * 4
                   + origins.numel() * 4 + in_img.numel() * in_img.element_size())
-        ops_n = valid_tests * OPS_PER_TEST[method]
+        ops_n = bgm_ops(method, live_per_group, in_img, grid.gf)
+        ops_tile = valid_tests * OPS_PER_TEST[method]
         emit({"phase": "kernel", "kernel": "bitmask_gen", "method": method,
               "shape": list(feat.shape), "live_entries": live, "differing_words": bad, "ms": ms,
-              "plain_ms": plain_ms, "bytes": nbytes, "ops": ops_n})
+              "plain_ms": plain_ms, "bytes": nbytes, "ops": ops_n,
+              "bound_ms": bound(nbytes, ops_n)[0], "ops_per_tile_form": ops_tile,
+              "bound_ms_per_tile_form": bound(nbytes, ops_tile)[0]})
         check(bad == 0, f"bitmask_gen[{method}] differs from its plain version in {bad} words")
         if method == cfg.boundary_tile:
             masks_main = got
@@ -694,16 +724,14 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
                      "gsm": gsm_launches}
     rows = []
     for name, k in kernels.items():
-        t_bytes = k["nbytes"] / PEAK_BYTES * 1e3
-        t_ops = k["ops"] / PEAK_FP32 * 1e3
+        bound_ms, bound_by = bound(k["nbytes"], k["ops"])
         path = replaces[name][1]
         launches = path_launches[path][name]
         rows.append({
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name][0], "path": path, "launches": launches,
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": k.get("library_ms"),
         })
     print(smi, flush=True)

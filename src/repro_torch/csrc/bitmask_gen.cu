@@ -44,16 +44,14 @@
 // per-tile test takes tile i's right edge as x0 + tile_px with x0 = ox +
 // i * tile_px, and the shared form takes it as line x_{i+1} = ox + (i + 1) *
 // tile_px (and likewise for rows). The two are the same float whenever the
-// tile lines are integers below 2^24 in magnitude, as they are for every
-// group of the pipeline (its origins are multiples of the group size): every
-// sum is then exact. Warp 0
-// checks the identity for the group's lines (a NaN origin fails it); a group
-// where it does not hold runs the per-tile test, slot by slot, so the words
-// equal the plain version's for any origin.
+// tile lines are integers of magnitude at most 2^24, since every sum is then
+// exact. That is the kernel's precondition on `origin`, and every group of
+// the pipeline meets it: ops.group_origins gives integer multiples of the
+// group size.
 //
-// The clamp in the shared form is one compare a side: !(v <= lo) ? v : lo
-// is nan_max(v, lo) whenever lo is not NaN (v > lo, or v is NaN), and
-// likewise for hi. Tile lines are never NaN where the shared form runs.
+// The clamp is one compare a side: !(v <= lo) ? v : lo is nan_max(v, lo)
+// whenever lo is not NaN (v > lo, or v is NaN), and likewise for hi. Tile
+// lines are integers by the precondition, so never NaN.
 //
 // Launch shape: blocks of THREADS entries of one group and no register cap,
 // by measurement: 64 or 256 threads, and caps of 40 or 32 registers (which
@@ -84,80 +82,6 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
   const float a = !(v <= lo) ? v : lo;
   return !(a >= hi) ? a : hi;
-}
-
-// ---------------------------------------------------------------------------
-// The per-tile tests, operation for operation as core/boundary.py. They run
-// only for a group whose tile lines are not exact (see the header).
-
-__device__ __forceinline__ bool aabb(float mx, float my, float r, float x0,
-                                     float y0, float x1, float y1) {
-  return (mx + r >= x0) & (mx - r <= x1) & (my + r >= y0) & (my - r <= y1);
-}
-
-__device__ __forceinline__ bool obb(float mx, float my, float ux, float uy,
-                                    float l1, float l2, float x0, float y0,
-                                    float x1, float y1) {
-  const float vx = -uy, vy = ux;
-  const float e1 = SIGMA_CUT * sqrtf(nan_max(l1, 0.0f));
-  const float e2 = SIGMA_CUT * sqrtf(nan_max(l2, 0.0f));
-  const float cx = 0.5f * (x0 + x1), cy = 0.5f * (y0 + y1);
-  const float hx = 0.5f * (x1 - x0), hy = 0.5f * (y1 - y0);
-  const float dx = mx - cx, dy = my - cy;
-  const bool sep_x = fabsf(dx) > hx + fabsf(ux) * e1 + fabsf(vx) * e2;
-  const bool sep_y = fabsf(dy) > hy + fabsf(uy) * e1 + fabsf(vy) * e2;
-  const bool sep_u = fabsf(dx * ux + dy * uy) > e1 + hx * fabsf(ux) + hy * fabsf(uy);
-  const bool sep_v = fabsf(dx * vx + dy * vy) > e2 + hx * fabsf(vx) + hy * fabsf(vy);
-  return !(sep_x | sep_y | sep_u | sep_v);
-}
-
-__device__ __forceinline__ float q_at(float A, float B, float C, float mx,
-                                      float my, float px, float py) {
-  const float dx = px - mx, dy = py - my;
-  return A * dx * dx + 2.0f * B * dx * dy + C * dy * dy;
-}
-
-__device__ __forceinline__ bool ellipse(float mx, float my, float A, float B,
-                                        float C, float x0, float y0, float x1,
-                                        float y1) {
-  const float C_s = fabsf(C) > 1e-12f ? C : 1e-12f;
-  const float A_s = fabsf(A) > 1e-12f ? A : 1e-12f;
-  const float bc = B / C_s, ba = B / A_s;
-  // Vertical edges x = xe: y* = my - (B/C)(xe - mx), clamped to [y0, y1].
-  const float ys0 = nan_min(nan_max(my - bc * (x0 - mx), y0), y1);
-  const float ys1 = nan_min(nan_max(my - bc * (x1 - mx), y0), y1);
-  // Horizontal edges y = ye: x* = mx - (B/A)(ye - my), clamped to [x0, x1].
-  const float xs0 = nan_min(nan_max(mx - ba * (y0 - my), x0), x1);
-  const float xs1 = nan_min(nan_max(mx - ba * (y1 - my), x0), x1);
-  const float qmin = nan_min(
-      nan_min(q_at(A, B, C, mx, my, x0, ys0), q_at(A, B, C, mx, my, x1, ys1)),
-      nan_min(q_at(A, B, C, mx, my, xs0, y0), q_at(A, B, C, mx, my, xs1, y1)));
-  const bool inside = (mx >= x0) & (mx <= x1) & (my >= y0) & (my <= y1);
-  return (inside ? 0.0f : qmin) <= QMAX;
-}
-
-template <int GF, int METHOD>
-__device__ __forceinline__ uint32_t per_tile_word(const float* f, int K, float mx, float my,
-                                               float ox, float oy, int tile_px) {
-  uint32_t mask = 0u;
-#pragma unroll 1
-  for (int slot = 0; slot < GF * GF; ++slot) {
-    const float x0 = ox + (float)((slot % GF) * tile_px);
-    const float y0 = oy + (float)((slot / GF) * tile_px);
-    const float x1 = x0 + (float)tile_px, y1 = y0 + (float)tile_px;
-    bool hit;
-    if (METHOD == METHOD_AABB) {
-      hit = aabb(mx, my, f[(size_t)F_RADIUS * K], x0, y0, x1, y1);
-    } else if (METHOD == METHOD_OBB) {
-      hit = obb(mx, my, f[(size_t)F_EIGVEC_X * K], f[(size_t)F_EIGVEC_Y * K],
-                f[(size_t)F_EIGVAL_1 * K], f[(size_t)F_EIGVAL_2 * K], x0, y0, x1, y1);
-    } else {
-      hit = ellipse(mx, my, f[(size_t)F_CONIC_A * K], f[(size_t)F_CONIC_B * K],
-                    f[(size_t)F_CONIC_C * K], x0, y0, x1, y1);
-    }
-    mask |= (uint32_t)hit << slot;
-  }
-  return mask;
 }
 
 // ---------------------------------------------------------------------------
@@ -285,26 +209,12 @@ bitmask_gen_kernel(const float* __restrict__ feat, const float* __restrict__ ori
                    int K, int tile_px) {
   constexpr int TPG = GF * GF;
   __shared__ uint32_t s_in_image;
-  __shared__ int s_exact;
   const int g = blockIdx.y;
-  const float ox = origin[2 * g], oy = origin[2 * g + 1];
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     const bool in = lane < TPG && tile_in_image[g * TPG + lane] != 0;
     const uint32_t word = __ballot_sync(~0u, in);
-    // Tile `lane`'s right (bottom) edge as the per-tile test computes it
-    // against line lane + 1 of the shared form.
-    bool exact = true;
-    if (lane < GF) {
-      const float x0 = ox + (float)(lane * tile_px), y0 = oy + (float)(lane * tile_px);
-      exact = (x0 + (float)tile_px == ox + (float)((lane + 1) * tile_px)) &&
-              (y0 + (float)tile_px == oy + (float)((lane + 1) * tile_px));
-    }
-    const bool all_exact = __all_sync(~0u, exact);
-    if (lane == 0) {
-      s_in_image = word;
-      s_exact = all_exact;
-    }
+    if (lane == 0) s_in_image = word;
   }
   __syncthreads();
   const int k = blockIdx.x * THREADS + threadIdx.x;
@@ -314,22 +224,19 @@ bitmask_gen_kernel(const float* __restrict__ feat, const float* __restrict__ ori
   if (f[(size_t)F_VALID * K] > 0.5f) {
     const float mx = f[(size_t)F_MEAN_X * K];
     const float my = f[(size_t)F_MEAN_Y * K];
-    if (s_exact) {
-      float xs[GF + 1], ys[GF + 1];
+    const float ox = origin[2 * g], oy = origin[2 * g + 1];
+    float xs[GF + 1], ys[GF + 1];
 #pragma unroll
-      for (int i = 0; i <= GF; ++i) {
-        xs[i] = ox + (float)(i * tile_px);
-        ys[i] = oy + (float)(i * tile_px);
-      }
-      if (METHOD == METHOD_AABB) {
-        mask = aabb_word<GF>(f, K, mx, my, xs, ys);
-      } else if (METHOD == METHOD_OBB) {
-        mask = obb_word<GF>(f, K, mx, my, xs, ys);
-      } else {
-        mask = ellipse_word<GF>(f, K, mx, my, xs, ys);
-      }
+    for (int i = 0; i <= GF; ++i) {
+      xs[i] = ox + (float)(i * tile_px);
+      ys[i] = oy + (float)(i * tile_px);
+    }
+    if (METHOD == METHOD_AABB) {
+      mask = aabb_word<GF>(f, K, mx, my, xs, ys);
+    } else if (METHOD == METHOD_OBB) {
+      mask = obb_word<GF>(f, K, mx, my, xs, ys);
     } else {
-      mask = per_tile_word<GF, METHOD>(f, K, mx, my, ox, oy, tile_px);
+      mask = ellipse_word<GF>(f, K, mx, my, xs, ys);
     }
     mask &= s_in_image;
   }
@@ -359,8 +266,9 @@ const char* gstg_error_string(int status) {
   return cudaGetErrorString((cudaError_t)status);
 }
 
-// feat (G, 16, K) f32, origin (G, 2) f32, tile_in_image (G, gf*gf) i32,
-// out (G, K) u32; method 0 aabb, 1 obb, 2 ellipse.
+// feat (G, 16, K) f32, origin (G, 2) f32 (integers of magnitude at most
+// 2^24 - gf * tile_px), tile_in_image (G, gf*gf) i32, out (G, K) u32;
+// method 0 aabb, 1 obb, 2 ellipse.
 int bitmask_gen_launch(const float* feat, const float* origin,
                        const int32_t* tile_in_image, uint32_t* out, int G,
                        int K, int tile_px, int gf, int method, void* stream) {

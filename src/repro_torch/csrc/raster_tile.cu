@@ -25,13 +25,11 @@
 // The tile kernel: one block per tile, one thread per pixel (1, 4 or 16
 // pixels a thread when a tile has more than 256). Each chunk is staged into
 // shared memory between two block-wide barriers and every thread walks it
-// in order. A chunk longer than PIECE entries is staged in pieces of PIECE
-// (the PIECES instances, chosen on the host); the early-exit vote stays at
+// in order, in pieces of min(chunk, PIECE) entries: one piece for a chunk
+// of at most PIECE, several for a longer one. The early-exit vote stays at
 // the chunk's start, never at a piece's, so any chunk that divides K runs
-// and stops where the plain version stops. A chunk that fits is staged
-// whole with its size as the row stride, as before: a piece loop for every
-// chunk read slower on the main frame's lists (PERF.md). It walks only up
-// to the list's last entry with opacity > 0.
+// and stops where the plain version stops. It walks only up to the list's
+// last entry with opacity > 0.
 //
 // The fused kernel. The first design ran one block per (group, member tile).
 // On the main frame (527 groups of up to 8,192 slots, 16 member tiles) each
@@ -143,9 +141,8 @@ __device__ __forceinline__ void blend_step(const Entry& e, float px, float py, b
 
 // ---------------------------------------------------------------------------
 // Tile kernel: one block rasterizes one tile of NPIX * blockDim.x pixels over
-// the list f (16, K), writing out (4, P) and counts (2). PIECES: chunk >
-// PIECE, staged in pieces.
-template <int NPIX, bool PIECES>
+// the list f (16, K), writing out (4, P) and counts (2).
+template <int NPIX>
 __device__ __forceinline__ void raster_body(const float* __restrict__ f, int K, float ox,
                                             float oy, int tile_px, int chunk, bool early_exit,
                                             float* __restrict__ out,
@@ -187,7 +184,7 @@ __device__ __forceinline__ void raster_body(const float* __restrict__ f, int K, 
   int a_ops = 0, b_ops = 0;
 
   float* s_row = smem;  // ROWS rows of `stride` words
-  const int stride = PIECES ? PIECE : chunk;
+  const int stride = min(chunk, PIECE);
   for (int c0 = 0; c0 < n_walk; c0 += chunk) {
     bool any_live = true;
     if (early_exit) {
@@ -199,11 +196,10 @@ __device__ __forceinline__ void raster_body(const float* __restrict__ f, int K, 
       __syncthreads();
     }
     if (!any_live) break;  // uniform across the block
-    // A chunk longer than PIECE in pieces, with no vote at a piece's start.
-    int p0 = c0;
-    do {
-      const int n = PIECES ? min(PIECE, c0 + chunk - p0) : chunk;
-      if (PIECES && p0 > c0) __syncthreads();  // the piece before has been walked
+    // The chunk in pieces, with no vote at a piece's start.
+    for (int p0 = c0; p0 < c0 + chunk; p0 += stride) {
+      const int n = min(stride, c0 + chunk - p0);
+      if (p0 > c0) __syncthreads();  // the piece before has been walked
       for (int i = tid; i < n; i += nthreads) {
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) s_row[r * stride + i] = f[(size_t)r * K + p0 + i];
@@ -218,7 +214,7 @@ __device__ __forceinline__ void raster_body(const float* __restrict__ f, int K, 
                      b_ops);
         }
       }
-    } while (PIECES && (p0 += PIECE) < c0 + chunk);
+    }
   }
 
 #pragma unroll
@@ -238,16 +234,16 @@ __device__ __forceinline__ void raster_body(const float* __restrict__ f, int K, 
   }
 }
 
-template <int NPIX, bool PIECES>
+template <int NPIX>
 __global__ void __launch_bounds__(MAX_THREADS)
 raster_tile(const float* __restrict__ feat, const float* __restrict__ origin,
             float* __restrict__ out, int32_t* __restrict__ counts, int K,
             int tile_px, int chunk, int early_exit) {
   const int t = blockIdx.x;
   const int P = tile_px * tile_px;
-  raster_body<NPIX, PIECES>(feat + (size_t)t * NUM_FEATURES * K, K, origin[2 * t],
-                            origin[2 * t + 1], tile_px, chunk, early_exit != 0,
-                            out + (size_t)t * 4 * P, counts + (size_t)t * 2);
+  raster_body<NPIX>(feat + (size_t)t * NUM_FEATURES * K, K, origin[2 * t], origin[2 * t + 1],
+                    tile_px, chunk, early_exit != 0, out + (size_t)t * 4 * P,
+                    counts + (size_t)t * 2);
 }
 
 // ---------------------------------------------------------------------------
@@ -596,23 +592,6 @@ void launch_fused(bool full, const float* feat, const uint32_t* masks, const flo
   }
 }
 
-template <bool PIECES>
-void launch_tile(int npix, const float* feat, const float* origin, float* out, int32_t* counts,
-                 int N, int K, int tile_px, int chunk, int early_exit, cudaStream_t s) {
-  const int P = tile_px * tile_px;
-  const size_t smem = (size_t)ROWS * (PIECES ? PIECE : chunk) * sizeof(float);
-  if (npix == 1) {
-    raster_tile<1, PIECES><<<N, P, smem, s>>>(feat, origin, out, counts, K, tile_px, chunk,
-                                              early_exit);
-  } else if (npix == 4) {
-    raster_tile<4, PIECES><<<N, P / 4, smem, s>>>(feat, origin, out, counts, K, tile_px, chunk,
-                                                  early_exit);
-  } else {
-    raster_tile<16, PIECES><<<N, P / 16, smem, s>>>(feat, origin, out, counts, K, tile_px,
-                                                    chunk, early_exit);
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -659,12 +638,14 @@ int raster_tile_launch(const float* feat, const float* origin, float* out,
                        int early_exit, void* stream) {
   if (bad_args(N, K, tile_px, chunk)) return (int)cudaErrorInvalidValue;
   const int P = tile_px * tile_px, npix = pixels_per_thread(P);
-  if (chunk > PIECE) {
-    launch_tile<true>(npix, feat, origin, out, counts, N, K, tile_px, chunk, early_exit,
-                      (cudaStream_t)stream);
+  const size_t smem = (size_t)ROWS * (chunk < PIECE ? chunk : PIECE) * sizeof(float);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (npix == 1) {
+    raster_tile<1><<<N, P, smem, s>>>(feat, origin, out, counts, K, tile_px, chunk, early_exit);
+  } else if (npix == 4) {
+    raster_tile<4><<<N, P / 4, smem, s>>>(feat, origin, out, counts, K, tile_px, chunk, early_exit);
   } else {
-    launch_tile<false>(npix, feat, origin, out, counts, N, K, tile_px, chunk, early_exit,
-                       (cudaStream_t)stream);
+    raster_tile<16><<<N, P / 16, smem, s>>>(feat, origin, out, counts, K, tile_px, chunk, early_exit);
   }
   return (int)cudaGetLastError();
 }

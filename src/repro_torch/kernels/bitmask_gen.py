@@ -90,7 +90,12 @@ def bitmask_kernel(
     method: str = "ellipse",
 ) -> torch.Tensor:
     """(num_groups, K) int32 bitmasks: the CUDA kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
+    the plain version on a CPU tensor.
+
+    The kernel shares each tile line between the tiles on it, which gives
+    the plain version's words only when every tile line ox + i * tile_px is
+    an integer of magnitude at most 2**24. Group origins must be such
+    integers, as those of ``ops.group_origins`` are."""
     _check_method(method)
     if feat.device.type == "cpu":
         return bitmask_plain(feat, group_origin, tile_in_image, tile_px, gf, method)
@@ -141,9 +146,9 @@ def edge_case_block(gf: int, tile_px: int, generator: torch.Generator):
     the tile whose line it sits below; read as zero (flush to zero), the
     mean lies on the line, inside the tile, and the entry's word changes.
     Group origins: (0, 0); the next group to the right; integers just
-    below 2**24; and (1/3, 64 + 1/3), whose tile lines are not exact sums
-    (the kernel's per-tile form). Group 0 has every member tile in the
-    image; the others have some outside it.
+    below 2**24; and a negative one, left of the image. All are integers,
+    as the kernel requires (see ``bitmask_kernel``). Group 0 has every
+    member tile in the image; the others have some outside it.
     """
     f32 = torch.float32
     G, K, tpg, span = 4, 512, gf * gf, gf * tile_px
@@ -166,7 +171,7 @@ def edge_case_block(gf: int, tile_px: int, generator: torch.Generator):
         return torch.where(step > 0, up, torch.where(step < 0, down, v))
 
     origins = torch.tensor([[0.0, 0.0], [float(span), 0.0],
-                            [float(2**24 - span), float(2**23)], [1 / 3, 64 + 1 / 3]],
+                            [float(2**24 - span), float(2**23)], [float(-span), 64.0]],
                            dtype=f32)
     in_img = rand(G, tpg) < 0.7
     in_img[0] = True

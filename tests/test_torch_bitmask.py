@@ -17,24 +17,12 @@ from repro.core.stages import mask_tile_lengths as jmask_tile_lengths
 from repro.kernels import ops as jops, ref as kref
 from repro.kernels.bitmask_gen import bitmask_kernel as pallas_bitmask
 from repro.kernels.layout import pack_features as jpack
-from repro_torch.core import bitmask, boundary
+from repro_torch.core import bitmask
 from repro_torch.core.grouping import GridSpec
 from repro_torch.core.stages import mask_tile_lengths
 from repro_torch.kernels import ops
 from repro_torch.kernels.bitmask_gen import bitmask_kernel, bitmask_plain, edge_case_block
-from repro_torch.kernels.layout import (
-    F_CONIC_A,
-    F_CONIC_C,
-    F_EIGVAL_1,
-    F_EIGVAL_2,
-    F_EIGVEC_X,
-    F_EIGVEC_Y,
-    F_MEAN_X,
-    F_MEAN_Y,
-    F_RADIUS,
-    F_VALID,
-    pack_features,
-)
+from repro_torch.kernels.layout import pack_features
 from torch_parity import n, proj_to_torch, t, table_to_torch
 
 W = H = 96
@@ -125,48 +113,18 @@ def test_bgm_rejects_methods_it_does_not_run(ellipse_case):
                        "ellipse_opacity")
 
 
-def _words_on_folded_edges(feat, origins, in_img, tile_px, gf, method):
-    """The plain BGM's words with member tile i's far edge taken as
-    ox + (i + 1) * tile_px. XLA folds the Pallas kernel's (ox + i * tile_px)
-    + tile_px into that one sum (its algebraic simplifier merges the two
-    constant adds); bitmask_plain rounds twice. The two are the same float
-    at an integer origin below 2**24, as every group origin of the pipeline
-    is, and may differ by an ulp at a fractional one."""
-    slots = torch.arange(gf * gf, dtype=torch.int32)
-    col, row = (slots % gf) * tile_px, (slots // gf) * tile_px
-    ox, oy = origins[:, 0, None, None], origins[:, 1, None, None]
-    rect = (ox + col.float(), oy + row.float(),
-            ox + (col + tile_px).float(), oy + (row + tile_px).float())
-    rows = feat.transpose(1, 2)[:, :, None, :]  # (G, K, 1, 16)
-    mean2d = rows[..., F_MEAN_X:F_MEAN_Y + 1]
-    if method == "aabb":
-        hit = boundary.aabb_test(mean2d, rows[..., F_RADIUS], rect)
-    elif method == "obb":
-        hit = boundary.obb_test(mean2d, rows[..., F_EIGVEC_X:F_EIGVEC_Y + 1],
-                                rows[..., F_EIGVAL_1:F_EIGVAL_2 + 1], rect)
-    else:
-        hit = boundary.ellipse_test(mean2d, rows[..., F_CONIC_A:F_CONIC_C + 1], rect)
-    hit = hit & (feat[:, F_VALID] > 0.5)[:, :, None] & in_img[:, None, :]
-    return bitmask.pack_bits(hit)
-
-
 @pytest.mark.parametrize("method", ["aabb", "obb", "ellipse"])
 @pytest.mark.parametrize("tile_px", [8, 16])
 @pytest.mark.parametrize("gf", [1, 2, 3, 4, 5])
 def test_plain_bgm_vs_pallas_on_edge_case_block(gf, tile_px, method):
     """The plain BGM against the Pallas kernel in interpret mode on the
-    block as built. Two known differences, both of the reference's XLA
-    environment on the CPU, and the words that differ are exactly theirs:
-
-      * XLA reads float32 subnormals as zero where torch and the card keep
-        them. The block's 16 subnormal means (group 0) then sit on a tile
-        line instead of one ulp outside it, which flips their aabb and
-        ellipse words; obb reads the mean only through mean - centre, which
-        rounds the subnormal away, so no obb word changes.
-      * XLA folds the far tile edge into ox + (i + 1) * tile_px. Group 3's
-        fractional origin makes that a different float for gf > 1, so some
-        of its words whose entries touch an edge differ.
-    """
+    block as built. One known difference, of the reference's XLA
+    environment on the CPU, and the words that differ are exactly its own:
+    XLA reads float32 subnormals as zero where torch and the card keep
+    them. The block's 16 subnormal means (group 0) then sit on a tile line
+    instead of one ulp outside it, which flips their aabb and ellipse
+    words; obb reads the mean only through mean - centre, which rounds the
+    subnormal away, so no obb word changes."""
     feat, origins, in_img = edge_case_block(gf, tile_px, torch.Generator().manual_seed(7))
     want = np.asarray(pallas_bitmask(jnp.asarray(n(feat)), jnp.asarray(n(origins)),
                                      jnp.asarray(n(in_img)), tile_px, gf, method=method,
@@ -174,8 +132,6 @@ def test_plain_bgm_vs_pallas_on_edge_case_block(gf, tile_px, method):
     got = _unsigned(bitmask_plain(feat, origins, in_img, tile_px, gf, method))
     tiny = torch.finfo(torch.float32).smallest_normal
     subnormal = n(((feat != 0) & (feat.abs() < tiny)).any(1))
-    folded = _unsigned(_words_on_folded_edges(feat, origins, in_img, tile_px, gf, method)) != got
     assert subnormal.sum() == 16 and not subnormal[1:].any()
-    assert not folded[:3].any() and (gf > 1 or not folded.any())
     flips = subnormal if method in ("aabb", "ellipse") else np.zeros_like(subnormal)
-    np.testing.assert_array_equal(got != want, flips | folded)
+    np.testing.assert_array_equal(got != want, flips)

@@ -96,8 +96,8 @@ def test_bitmask_kernel_bit_exact(cuda_device, tile, gf, method):
 def test_bitmask_kernel_edge_cases(cuda_device, tile, gf, method):
     """The package's edge-case block (means on and one ulp off tile lines,
     q = 9 exactly, degenerate and huge shapes, NaN and inf, subnormals,
-    member tiles outside the image, and a fractional origin that takes the
-    kernel's per-tile form): every word bitwise the plain version's."""
+    member tiles outside the image, origins up to 2**24 and below 0): every
+    word bitwise the plain version's."""
     feat, origins, in_img = edge_case_block(gf, tile, torch.Generator().manual_seed(7))
     want = bitmask_plain(feat, origins, in_img, tile, gf, method)
     got = bitmask_kernel(feat.to(cuda_device), origins.to(cuda_device),
