@@ -7,8 +7,10 @@ Run from the repository root on a machine with one CUDA card (sm_90a). It
 imports nothing of JAX or of the JAX package ``repro``. Phases, one JSON
 line each:
 
-  1. device   — the card (nvidia-smi name and power limit) and the kernels'
-                build times (one nvcc per source, started together).
+  1. device   — the card (nvidia-smi name and power limit), the kernels'
+                build times (one nvcc per source, started together), and
+                the block shape, registers, shared memory and spills of
+                both raster kernels and the BGM.
   2. kernel   — each CUDA kernel against its plain PyTorch version on the
                 main path's inputs (bitmask: 3 methods, bit-exact; raster:
                 max-abs <= 1e-4, counters within 1e-5 relative), with
@@ -17,10 +19,17 @@ line each:
                 kernel over the compacted lists of the same table and
                 masks, bit for bit (rgb and counters with early exit, all
                 four rows without), and out-of-image member tiles rgb 0,
-                T 1, counts 0.
+                T 1, counts 0. The tile kernel's bound counts the entries
+                its early exit walks (the plain version's stops); it is also
+                timed with early exit off (every live entry walked).
      bgm_edge_cases — the BGM kernel against its plain version on the
                 package's edge_case_block, gf 1-5 x tile 8 and 16 x 3
                 methods, bit for bit.
+     tile_edge_cases — the tile kernel against its plain version (run on
+                the host) on the package's edge_case_lists, tile 4-64 (4,
+                6, 12 and 48 leave pixel slots idle) x chunk 32, the window
+                and 2048 x early exit on and off: rgb within 1e-5, T within
+                1e-4 relative, NaN in the same places, counters equal.
      wide_chunk — chunk 2048 on a small frame whose group lists pass 1,024
                 entries: the fused kernel, the tile kernel over the
                 compacted lists and over the group lists as 64-px tiles
@@ -45,7 +54,8 @@ line each:
                 frontend counters equal, image within 1e-4.
   5. lossless — gstg against tile_baseline on the cuda backend (120,000
                 gaussians, 1952x1088, camera twice as far so that no list
-                is cut): bitwise-equal images.
+                is cut): bitwise-equal images; both frames' times (CUDA
+                events, median of 10 after a warm-up) and their ratio.
   6. kernels  — every ported kernel: launches, error, times, bound,
                 library time (torch.sort + gather for the bitonic sort).
 
@@ -172,6 +182,17 @@ def fused_build_report(build) -> dict:
                 lambda m: f"NPIX={m.group(1)},FULL={m.group(2)}")}
 
 
+def tile_build_report(build, tile_kernel_shape) -> dict:
+    """The tile raster kernel as built: its launch for the main path's tile,
+    as the CUDA source reports it, and, per instance, registers, shared
+    memory and spills. NPIX is pixels a thread; FULL says every pixel slot
+    lies in the tile."""
+    return {**tile_kernel_shape(CFG_KW["tile"]),
+            "instances": ptxas_instances(
+                build, "raster_tile", r"raster_tileILi(\d+)ELb([01])E",
+                lambda m: f"NPIX={m.group(1)},FULL={m.group(2)}")}
+
+
 def bgm_build_report(build, methods) -> dict:
     """The BGM kernel as built: its block size and, per (gf, method)
     instance, registers, shared memory and spills."""
@@ -230,10 +251,14 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     from repro_torch.kernels.bitonic_sort import bitonic_sort_kernel, bitonic_sort_plain
     from repro_torch.kernels.layout import LANE, pack_features
     from repro_torch.kernels.raster_tile import (
+        TILE_WINDOW,
+        edge_case_lists,
         raster_group_fused_kernel,
         raster_group_fused_plain,
         raster_tile_kernel,
         raster_tile_plain,
+        raster_tile_walk,
+        tile_kernel_shape,
     )
 
     on_card = dev.type == "cuda"
@@ -283,12 +308,18 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
         if log.exists():
             ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
                            if "registers" in ln or "spill" in ln]
+    tile_report = tile_build_report(build, tile_kernel_shape) if on_card else None
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": count, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
           "build_wall_s": round(build_wall, 3), "ptxas": ptxas,
           "raster_group_fused": fused_build_report(build),
+          "raster_tile": tile_report,
           "bitmask_gen": bgm_build_report(build, KERNEL_METHODS)})
+    if tile_report:  # edge_case_lists places its seams by the kernel's window
+        check(tile_report["window_entries"] == TILE_WINDOW,
+              f"the tile kernel stages {tile_report['window_entries']} entries a window, "
+              f"edge_case_lists assumes {TILE_WINDOW}")
 
     # -- main-path inputs ------------------------------------------------------
     spec = PAPER_SCENES["train"]
@@ -367,6 +398,18 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
         t_off = int(((t_k - t_p).abs() > 1e-30 + 1e-4 * t_p.abs()).sum())
         return err, tot_k, tot_p, rel, flips, t_off
 
+    def edge_disagreement(out_k, cnt_k, out_p, cnt_p):
+        """Pixels and tiles where the kernel leaves its plain version: rgb
+        off by more than 1e-5, T by more than 1e-4 relative (1e-30
+        absolute), NaN in one and not the other, counters not equal."""
+        nan_k, nan_p = out_k.isnan(), out_p.isnan()
+        diff = (out_k - out_p).abs().nan_to_num(0.0)
+        rgb = (diff[:, :3] > 1e-5) | (nan_k[:, :3] != nan_p[:, :3])
+        t_off = ((diff[:, 3] > 1e-30 + 1e-4 * out_p[:, 3].abs().nan_to_num(0.0))
+                 | (nan_k[:, 3] != nan_p[:, 3]))
+        return {"rgb_off": int(rgb.sum()), "t_off": int(t_off.sum()),
+                "tiles_with_counters_off": int((cnt_k != cnt_p).any(1).sum())}
+
     def raster_compare(name, run_k, run_p, n_outputs_bytes, in_bytes):
         out_k, cnt_k = run_k()
         out_p, cnt_p = run_p()
@@ -403,14 +446,46 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     tfeat = pack_features(front.proj, ttable.gauss_idx, ttable.entry_valid, multiple=pad)
     torigins = ops.tile_origins(grid, dev)
     NT, _, KT = tfeat.shape
-    tile_live = int(ttable.entry_valid.sum())
+    # Bytes the tile RM needs on this data: the nine rows of each tile's
+    # entries up to the chunk boundary where early exit stops it (or its
+    # last live entry), the opacity of the padding it walks before that
+    # boundary, the origins and every output.
+    walk_full, walk_opacity = (int(x.sum()) for x in
+                               raster_tile_walk(tfeat, torigins, grid.tile, cfg.chunk))
     raster_compare(
         "raster_tile",
         lambda: raster_tile_kernel(tfeat, torigins, grid.tile, chunk=cfg.chunk),
         lambda: raster_tile_plain(tfeat, torigins, grid.tile, chunk=cfg.chunk),
         NT * (4 * P + 2) * 4,
-        (NT * KT + RASTER_ROWS * tile_live) * 4 + torigins.numel() * 4,
+        (RASTER_ROWS * walk_full + walk_opacity) * 4 + torigins.numel() * 4,
     )
+    # Every live entry walked: the blend's cost per (tile, entry).
+    emit({"phase": "kernel", "kernel": "raster_tile", "check": "no_early_exit",
+          "entries_walked_with_early_exit": walk_full, "opacity_only": walk_opacity,
+          "live_entries": int(ttable.entry_valid.sum()),
+          "ms": time_ms(lambda: raster_tile_kernel(tfeat, torigins, grid.tile,
+                                                   chunk=cfg.chunk, early_exit=False))})
+
+    # The package's edge-case lists: the tile kernel against its plain
+    # version, run on the host as the cuda tests run it (there its cumprod
+    # multiplies a chunk in list order, as the kernel does), at tile sizes
+    # that fill their blocks and ones that leave pixel slots idle (4, 6, 12,
+    # 48), and at chunks below, at and past a window.
+    edge = {"cases": 0, "failures": []}
+    for tile_px in (4, 6, 8, 12, 16, 32, 48, 64):
+        for chunk in (32, TILE_WINDOW, 2048):
+            f_e, o_e = edge_case_lists(tile_px, chunk, torch.Generator().manual_seed(3))
+            for early_exit in (True, False):
+                out_k, cnt_k = raster_tile_kernel(f_e.to(dev), o_e.to(dev), tile_px, chunk,
+                                                  early_exit)
+                out_p, cnt_p = raster_tile_plain(f_e, o_e, tile_px, chunk, early_exit)
+                edge["cases"] += 1
+                bad = edge_disagreement(out_k.cpu(), cnt_k.cpu(), out_p, cnt_p)
+                if any(bad.values()):
+                    edge["failures"].append(
+                        {"tile": tile_px, "chunk": chunk, "early_exit": early_exit, **bad})
+    emit({"phase": "kernel", "kernel": "raster_tile", "check": "tile_edge_cases", **edge})
+    check(not edge["failures"], f"tile_edge_cases: {edge['failures']}")
 
     def fused_vs_tile(feat, masks, origins, tfeat, torigins, grid, chunk, tile_capacity,
                       what="fused_vs_tile"):
@@ -689,16 +764,20 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     eye_l = (0.0, spec.extent * 0.7, spec.extent * 3.0)
     cam_l = make_camera(eye_l, (0, 0, 0), width, height, fov_x_deg=62.0)
     scene_l = scene_like_paper("train", n_lossless, device=dev)
+    cfg_base = RenderConfig(**{**CFG_KW, "mode": "tile_baseline"}, backend="cuda")
     ours = render(scene_l, cam_l, cfg)
     build.reset_launches()
-    base = render(scene_l, cam_l, RenderConfig(**{**CFG_KW, "mode": "tile_baseline"},
-                                                backend="cuda"))
+    base = render(scene_l, cam_l, cfg_base)
     sync()
     tile_launches = dict(build.LAUNCHES)
     same = bool(torch.equal(ours.image, base.image))
     s_ours, s_base = ours.stats.as_dict(), base.stats.as_dict()
+    frame_ms = {name: time_ms(lambda c=c: render(scene_l, cam_l, c))
+                for name, c in (("gstg", cfg), ("tile_baseline", cfg_base))}
     emit({"phase": "lossless", "gaussians": n_lossless, "eye": eye_l,
           "bitwise_equal": same, "max_abs": float((ours.image - base.image).abs().max()),
+          "frame_ms_median": frame_ms,
+          "gstg_over_tile_baseline": frame_ms["gstg"] / frame_ms["tile_baseline"],
           "gstg_stats": s_ours, "tile_baseline_stats": s_base,
           "tile_baseline_launches": tile_launches})
     check(same, "lossless: gstg and tile_baseline images differ")

@@ -22,14 +22,34 @@
 // list (the group list for the fused kernel) at which none of its pixels is
 // alive. Stopping changes no rgb value and no counter, only the final T.
 //
-// The tile kernel: one block per tile, one thread per pixel (1, 4 or 16
-// pixels a thread when a tile has more than 256). Each chunk is staged into
-// shared memory between two block-wide barriers and every thread walks it
-// in order, in pieces of min(chunk, PIECE) entries: one piece for a chunk
-// of at most PIECE, several for a longer one. The early-exit vote stays at
-// the chunk's start, never at a piece's, so any chunk that divides K runs
-// and stops where the plain version stops. It walks only up to the list's
-// last entry with opacity > 0.
+// The tile kernel: one block per tile, of as many warps as keep a thread at
+// TILE_PIX pixels: two warps at 4 pixels a thread for a 16x16 tile (one warp
+// at 2 for 8x8, 8 warps at 32x32, 16 warps at 8 pixels for 64x64). A tile
+// whose pixels are not a whole number of warps x pixels a thread (4, 6, 12,
+// 48 px, ...) leaves the last slots idle (the FULL = false instances).
+//   * The list is staged in windows of TILE_WIN entries (the nine rows the
+//     blend reads) with cp.async into a double buffer: the next window loads
+//     while this one blends, behind one barrier of the block (the tile's
+//     own warps) per window.
+//   * The first window's copy goes out before the opacity scan that finds
+//     the walk's end (one past the last entry with opacity > 0, or NaN), so
+//     the scan's loads overlap it.
+//   * The early-exit test is made lazily, as in the fused kernel: T changes
+//     only at an entry with opacity > 0 (or NaN), so the test at a chunk
+//     boundary is the test just before the first such entry past it. The
+//     tile's warps vote with one __syncthreads_or, a barrier of two warps
+//     for a 16x16 tile. Windows are a staging unit, never a vote point, so
+//     any chunk that divides K (32, the window, 2,048) stops where the
+//     plain version stops.
+//   * Each entry's nine shared words are read once for all of a thread's
+//     pixels.
+// It shares only blend_step, load_entry, the constants and the copy helpers
+// with the fused kernel, and none of its walk: no mask ballots, no FIFO
+// clamp. On the main frame's compacted lists (8,296 tiles, K = 2,048, chunk
+// 32) it takes 0.46-0.50 ms on an H100 80GB HBM3 at 700 W (PERF.md). It is
+// bound by instruction issue: about 46 instructions per (pixel, entry), and
+// a tile walks every pixel up to the chunk boundary where its last pixel
+// dies (T has to be exact there).
 //
 // The fused kernel. The first design ran one block per (group, member tile).
 // On the main frame (527 groups of up to 8,192 slots, 16 member tiles) each
@@ -90,8 +110,18 @@ constexpr float T_EPS = 1e-4f;
 constexpr float QMAX = 9.0f;
 // Staged words per entry: the feature rows F_MEAN_X .. F_RGB_B.
 constexpr int ROWS = 9;
-constexpr int MAX_THREADS = 256;  // tile kernel
-constexpr int PIECE = 1024;       // tile kernel: ROWS * 1024 * 4 bytes < 48 KB
+// Tile sizes both kernels take: 1, 4 or 16 pixels a thread of at most
+// MAX_THREADS (pixels_per_thread), so a tile has at most 64x64 pixels.
+constexpr int MAX_THREADS = 256;
+constexpr int MAX_TILE_PIXELS = 16 * MAX_THREADS;
+
+constexpr int TILE_PIX = 4;         // tile kernel: pixels a thread it aims at
+constexpr int TILE_MAX_WARPS = 16;  // tile kernel: warps a tile, at most
+constexpr int TILE_WIN = 64;        // tile kernel: entries staged per window
+constexpr int TILE_MAX_THREADS = 32 * TILE_MAX_WARPS;
+static_assert(TILE_PIX <= 8 && TILE_MAX_THREADS * 8 >= MAX_TILE_PIXELS,
+              "the launch picks 1, 2, 4 or 8 pixels a thread");
+static_assert(TILE_WIN % 4 == 0, "a window row holds whole 16-byte vectors");
 
 constexpr int FUSED_WARPS = 32;  // a fused block: 1,024 threads
 constexpr int FUSED_THREADS = 32 * FUSED_WARPS;
@@ -120,7 +150,8 @@ __device__ __forceinline__ Entry load_entry(const float* rows, int stride, int i
 }
 
 // One (pixel, entry) step of the front-to-back blend. `counted` is false
-// only for the fused kernel's padding pixels past the tile.
+// only for a padding pixel slot past the tile (either kernel, at a tile
+// size that is not a whole number of warps x pixels a thread).
 __device__ __forceinline__ void blend_step(const Entry& e, float px, float py, bool counted,
                                            bool early_exit, float& T, float& cr, float& cg,
                                            float& cb, int& a_ops, int& b_ops) {
@@ -140,114 +171,7 @@ __device__ __forceinline__ void blend_step(const Entry& e, float px, float py, b
 }
 
 // ---------------------------------------------------------------------------
-// Tile kernel: one block rasterizes one tile of NPIX * blockDim.x pixels over
-// the list f (16, K), writing out (4, P) and counts (2).
-template <int NPIX>
-__device__ __forceinline__ void raster_body(const float* __restrict__ f, int K, float ox,
-                                            float oy, int tile_px, int chunk, bool early_exit,
-                                            float* __restrict__ out,
-                                            int32_t* __restrict__ counts) {
-  extern __shared__ float smem[];
-  __shared__ int s_last;
-  __shared__ int s_counts[2];
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int P = NPIX * nthreads;
-
-  // Walk only up to the last entry with opacity > 0 (or NaN): the rest are
-  // no-ops for every output and counter.
-  if (tid == 0) {
-    s_last = 0;
-    s_counts[0] = 0;
-    s_counts[1] = 0;
-  }
-  __syncthreads();
-  int last = 0;
-  for (int k = tid; k < K; k += nthreads) {
-    if (!(f[(size_t)F_OPACITY * K + k] <= 0.0f)) last = k + 1;
-  }
-  if (last > 0) atomicMax(&s_last, last);
-  __syncthreads();
-  const int n_walk = min(K, (s_last + chunk - 1) / chunk * chunk);
-
-  float px[NPIX], py[NPIX], T[NPIX], cr[NPIX], cg[NPIX], cb[NPIX];
-#pragma unroll
-  for (int j = 0; j < NPIX; ++j) {
-    const int p = j * nthreads + tid;
-    px[j] = ox + ((float)(p % tile_px) + 0.5f);
-    py[j] = oy + ((float)(p / tile_px) + 0.5f);
-    T[j] = 1.0f;
-    cr[j] = 0.0f;
-    cg[j] = 0.0f;
-    cb[j] = 0.0f;
-  }
-  int a_ops = 0, b_ops = 0;
-
-  float* s_row = smem;  // ROWS rows of `stride` words
-  const int stride = min(chunk, PIECE);
-  for (int c0 = 0; c0 < n_walk; c0 += chunk) {
-    bool any_live = true;
-    if (early_exit) {
-      bool mine = false;
-#pragma unroll
-      for (int j = 0; j < NPIX; ++j) mine |= T[j] > T_EPS;
-      any_live = __syncthreads_or(mine);
-    } else {
-      __syncthreads();
-    }
-    if (!any_live) break;  // uniform across the block
-    // The chunk in pieces, with no vote at a piece's start.
-    for (int p0 = c0; p0 < c0 + chunk; p0 += stride) {
-      const int n = min(stride, c0 + chunk - p0);
-      if (p0 > c0) __syncthreads();  // the piece before has been walked
-      for (int i = tid; i < n; i += nthreads) {
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) s_row[r * stride + i] = f[(size_t)r * K + p0 + i];
-      }
-      __syncthreads();
-      for (int i = 0; i < n; ++i) {
-        if (s_row[F_OPACITY * stride + i] <= 0.0f) continue;  // alpha 0 and not counted
-        const Entry e = load_entry(s_row, stride, i);
-#pragma unroll
-        for (int j = 0; j < NPIX; ++j) {
-          blend_step(e, px[j], py[j], true, early_exit, T[j], cr[j], cg[j], cb[j], a_ops,
-                     b_ops);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < NPIX; ++j) {
-    const int p = j * nthreads + tid;
-    out[0 * P + p] = cr[j];
-    out[1 * P + p] = cg[j];
-    out[2 * P + p] = cb[j];
-    out[3 * P + p] = T[j];
-  }
-  if (a_ops) atomicAdd(&s_counts[0], a_ops);
-  if (b_ops) atomicAdd(&s_counts[1], b_ops);
-  __syncthreads();
-  if (tid == 0) {
-    counts[0] = s_counts[0];
-    counts[1] = s_counts[1];
-  }
-}
-
-template <int NPIX>
-__global__ void __launch_bounds__(MAX_THREADS)
-raster_tile(const float* __restrict__ feat, const float* __restrict__ origin,
-            float* __restrict__ out, int32_t* __restrict__ counts, int K,
-            int tile_px, int chunk, int early_exit) {
-  const int t = blockIdx.x;
-  const int P = tile_px * tile_px;
-  raster_body<NPIX>(feat + (size_t)t * NUM_FEATURES * K, K, origin[2 * t], origin[2 * t + 1],
-                    tile_px, chunk, early_exit != 0, out + (size_t)t * 4 * P,
-                    counts + (size_t)t * 2);
-}
-
-// ---------------------------------------------------------------------------
-// Fused kernel helpers.
+// Copy and mbarrier helpers.
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -292,8 +216,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 }
 
 // Copy rows F_MEAN_X .. F_RGB_B of entries [w0, w0 + n) of the list f (16, K)
-// into a window buffer, asynchronously (one commit group).
-__device__ __forceinline__ void stage_window(float (*dst)[WIN], const float* f, int K, int w0,
+// into a window buffer of W entries a row, asynchronously (one commit group).
+template <int W>
+__device__ __forceinline__ void stage_window(float (*dst)[W], const float* f, int K, int w0,
                                              int n, bool vec) {
   if (vec) {  // K % 4 == 0 and f 16-byte aligned: whole vectors stay inside the row
     const int nv = (n + 3) / 4;
@@ -309,6 +234,146 @@ __device__ __forceinline__ void stage_window(float (*dst)[WIN], const float* f, 
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+
+// ---------------------------------------------------------------------------
+// Tile kernel: one block per tile, TILE_PIX pixels a thread (two warps for a
+// 16x16 tile), staging its list in windows of TILE_WIN entries.
+
+// Thread u owns pixels j * blockDim.x + u, j < NPIX (FULL: all of them lie in
+// the tile). Every thread walks every entry in list order; the walk's
+// control flow is uniform across the block.
+template <int NPIX, bool FULL>
+__global__ void __launch_bounds__(TILE_MAX_THREADS)
+raster_tile(const float* __restrict__ feat, const float* __restrict__ origin,
+            float* __restrict__ out, int32_t* __restrict__ counts, int K,
+            int tile_px, int chunk, int early_exit) {
+  __shared__ __align__(16) float s_win[2][ROWS][TILE_WIN];
+  __shared__ int s_last[TILE_MAX_THREADS / 32];
+  __shared__ int s_counts[TILE_MAX_THREADS / 32][2];
+
+  const int t = blockIdx.x, P = tile_px * tile_px;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
+  const bool exit_on = early_exit != 0;
+  const float* f = feat + (size_t)t * NUM_FEATURES * K;
+  const bool vec = (K % 4 == 0) && ((reinterpret_cast<uintptr_t>(f) & 15) == 0);
+
+  // The first window's copy goes out before the walk's length is known, and
+  // the opacity scan runs while it is in flight.
+  stage_window(s_win[0], f, K, 0, min(TILE_WIN, K), vec);
+
+  // The walk ends one past the last entry with opacity > 0 (or NaN): the
+  // rest are no-ops for every output and counter.
+  const float* op = f + (size_t)F_OPACITY * K;
+  int last = 0;
+  if (vec) {
+    const float4* op4 = reinterpret_cast<const float4*>(op);
+#pragma unroll 4
+    for (int v = tid; v < K / 4; v += nthreads) {
+      const float4 o = op4[v];
+      if (!(o.w <= 0.0f)) {
+        last = 4 * v + 4;
+      } else if (!(o.z <= 0.0f)) {
+        last = 4 * v + 3;
+      } else if (!(o.y <= 0.0f)) {
+        last = 4 * v + 2;
+      } else if (!(o.x <= 0.0f)) {
+        last = 4 * v + 1;
+      }
+    }
+  } else {
+    for (int k = tid; k < K; k += nthreads) {
+      if (!(op[k] <= 0.0f)) last = k + 1;
+    }
+  }
+  last = __reduce_max_sync(~0u, last);
+  if (lane == 0) s_last[warp] = last;
+  cp_async_wait_all();
+  __syncthreads();
+  for (int w = 0; w < nwarps; ++w) last = max(last, s_last[w]);
+  const int n_walk = last;
+
+  const float ox = origin[2 * t], oy = origin[2 * t + 1];
+  float px[NPIX], py[NPIX], T[NPIX], cr[NPIX], cg[NPIX], cb[NPIX];
+  bool in_tile[NPIX];
+#pragma unroll
+  for (int j = 0; j < NPIX; ++j) {
+    const int p = j * nthreads + tid;
+    in_tile[j] = FULL || p < P;
+    px[j] = ox + ((float)(p % tile_px) + 0.5f);
+    py[j] = oy + ((float)(p / tile_px) + 0.5f);
+    T[j] = 1.0f;
+    cr[j] = 0.0f;
+    cg[j] = 0.0f;
+    cb[j] = 0.0f;
+  }
+  int a_ops = 0, b_ops = 0, next_check = 0;
+  bool stopped = false;
+
+  // Windows are a staging unit only. The early-exit test belongs to chunk
+  // boundaries, and is made lazily: T changes only at an entry with opacity
+  // > 0 (or NaN), so the test at a boundary is the test just before the
+  // first such entry past it.
+  for (int w0 = 0, buf = 0; w0 < n_walk; w0 += TILE_WIN, buf ^= 1) {
+    const int nx = w0 + TILE_WIN;
+    if (nx < n_walk) stage_window(s_win[buf ^ 1], f, K, nx, min(TILE_WIN, n_walk - nx), vec);
+    const int n = min(TILE_WIN, n_walk - w0);
+    for (int i = 0; i < n; ++i) {
+      if (s_win[buf][F_OPACITY][i] <= 0.0f) continue;  // alpha 0 and not counted
+      const int k = w0 + i;
+      if (exit_on && k >= next_check) {
+        bool alive = false;
+#pragma unroll
+        for (int j = 0; j < NPIX; ++j) alive |= in_tile[j] && T[j] > T_EPS;
+        if (!__syncthreads_or(alive)) {
+          stopped = true;
+          break;
+        }
+        next_check = (k / chunk + 1) * chunk;
+      }
+      const Entry e = load_entry(&s_win[buf][0][0], TILE_WIN, i);
+#pragma unroll
+      for (int j = 0; j < NPIX; ++j) {
+        blend_step(e, px[j], py[j], in_tile[j], exit_on, T[j], cr[j], cg[j], cb[j], a_ops,
+                   b_ops);
+      }
+    }
+    if (stopped) break;
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  cp_async_wait_all();  // a stop leaves the next window's copy in flight
+
+  float* o = out + (size_t)t * 4 * P;
+#pragma unroll
+  for (int j = 0; j < NPIX; ++j) {
+    const int p = j * nthreads + tid;
+    if (in_tile[j]) {
+      o[0 * P + p] = cr[j];
+      o[1 * P + p] = cg[j];
+      o[2 * P + p] = cb[j];
+      o[3 * P + p] = T[j];
+    }
+  }
+  const int a = __reduce_add_sync(~0u, a_ops), b = __reduce_add_sync(~0u, b_ops);
+  if (lane == 0) {
+    s_counts[warp][0] = a;
+    s_counts[warp][1] = b;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int sa = 0, sb = 0;
+    for (int w = 0; w < nwarps; ++w) {
+      sa += s_counts[w][0];
+      sb += s_counts[w][1];
+    }
+    counts[2 * (size_t)t] = sa;
+    counts[2 * (size_t)t + 1] = sb;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Fused kernel helpers.
 
 // A word warp's inputs for one 32-entry word: loaded before the walk and
 // balloted after it, so the loads' latency hides behind the blend.
@@ -592,6 +657,35 @@ void launch_fused(bool full, const float* feat, const uint32_t* masks, const flo
   }
 }
 
+// The tile kernel's block: warps enough for TILE_PIX pixels a thread, at
+// most TILE_MAX_WARPS (two warps for a 16x16 tile), and the pixels a thread
+// that then cover the tile.
+struct TileShape {
+  int warps, npix;
+  bool full;
+};
+
+TileShape tile_shape(int tile_px) {
+  const int P = tile_px * tile_px, per_warp = 32 * TILE_PIX;
+  const int warps = min(TILE_MAX_WARPS, (P + per_warp - 1) / per_warp);
+  const int need = (P + 32 * warps - 1) / (32 * warps);
+  const int npix = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : 8;
+  return {warps, npix, npix * 32 * warps == P};
+}
+
+template <int NPIX>
+void launch_tile(bool full, const float* feat, const float* origin, float* out,
+                 int32_t* counts, int N, int K, int tile_px, int chunk, int early_exit,
+                 int warps, cudaStream_t s) {
+  if (full) {
+    raster_tile<NPIX, true><<<N, 32 * warps, 0, s>>>(feat, origin, out, counts, K, tile_px,
+                                                      chunk, early_exit);
+  } else {
+    raster_tile<NPIX, false><<<N, 32 * warps, 0, s>>>(feat, origin, out, counts, K, tile_px,
+                                                       chunk, early_exit);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -637,17 +731,36 @@ int raster_tile_launch(const float* feat, const float* origin, float* out,
                        int32_t* counts, int N, int K, int tile_px, int chunk,
                        int early_exit, void* stream) {
   if (bad_args(N, K, tile_px, chunk)) return (int)cudaErrorInvalidValue;
-  const int P = tile_px * tile_px, npix = pixels_per_thread(P);
-  const size_t smem = (size_t)ROWS * (chunk < PIECE ? chunk : PIECE) * sizeof(float);
+  const TileShape sh = tile_shape(tile_px);
   cudaStream_t s = (cudaStream_t)stream;
-  if (npix == 1) {
-    raster_tile<1><<<N, P, smem, s>>>(feat, origin, out, counts, K, tile_px, chunk, early_exit);
-  } else if (npix == 4) {
-    raster_tile<4><<<N, P / 4, smem, s>>>(feat, origin, out, counts, K, tile_px, chunk, early_exit);
+  if (sh.npix == 1) {
+    launch_tile<1>(sh.full, feat, origin, out, counts, N, K, tile_px, chunk, early_exit,
+                   sh.warps, s);
+  } else if (sh.npix == 2) {
+    launch_tile<2>(sh.full, feat, origin, out, counts, N, K, tile_px, chunk, early_exit,
+                   sh.warps, s);
+  } else if (sh.npix == 4) {
+    launch_tile<4>(sh.full, feat, origin, out, counts, N, K, tile_px, chunk, early_exit,
+                   sh.warps, s);
   } else {
-    raster_tile<16><<<N, P / 16, smem, s>>>(feat, origin, out, counts, K, tile_px, chunk, early_exit);
+    launch_tile<8>(sh.full, feat, origin, out, counts, N, K, tile_px, chunk, early_exit,
+                   sh.warps, s);
   }
   return (int)cudaGetLastError();
+}
+
+// The tile kernel's launch for a tile of tile_px: shape = (threads a block,
+// pixels a thread, 1 if every pixel slot lies in the tile, entries a window).
+int raster_tile_shape(int tile_px, int32_t* shape) {
+  if (tile_px <= 0 || pixels_per_thread(tile_px * tile_px) == 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const TileShape sh = tile_shape(tile_px);
+  shape[0] = 32 * sh.warps;
+  shape[1] = sh.npix;
+  shape[2] = sh.full ? 1 : 0;
+  shape[3] = TILE_WIN;
+  return 0;
 }
 
 }  // extern "C"

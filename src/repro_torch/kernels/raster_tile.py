@@ -15,17 +15,25 @@ Two entry points, replacing the Pallas TPU kernels of
 Both return the (…, 4, T²) rgb + final transmittance block and per-tile
 int32 (alpha_ops, blend_ops) counters. The CUDA source is
 ``csrc/raster_tile.cu``; both kernels blend sequentially per pixel through
-one shared step. The fused kernel runs one block per group: it stages each
-window of the group's entries once for all member tiles, and each tile's
-warps walk only the entries their tile streams, so it gives the tile
-kernel's rgb and counters bit for bit over the compacted lists. The plain
-versions follow the Pallas kernel's per-chunk exclusive cumprod instead, so
-the two agree to float32 reassociation (images) and to rare flips of the
-T_before > 1e-4 gate (counters). On a CUDA tensor a wrapper launches its
-kernel; on a CPU tensor it runs the plain version; it never falls back.
+one shared step. The tile kernel runs one block per tile (two warps at 4
+pixels a thread for a 16x16 tile) and stages its list in windows of
+``TILE_WINDOW`` entries with cp.async, the next window loading while this
+one blends; it votes on early exit at chunk boundaries only (warp votes
+combined over the tile's warps), so any chunk that divides K stops where
+the plain version stops. On the main frame's compacted lists it takes
+0.46-0.50 ms on an H100 80GB HBM3 at 700 W (PERF.md).
+The fused kernel runs one block per group: it stages each window of the
+group's entries once for all member tiles, and each tile's warps walk only
+the entries their tile streams, so it gives the tile kernel's rgb and
+counters bit for bit over the compacted lists. The plain versions follow
+the Pallas kernel's per-chunk exclusive cumprod instead, so the two agree
+to float32 reassociation (images) and to rare flips of the T_before > 1e-4
+gate (counters). On a CUDA tensor a wrapper launches its kernel; on a CPU
+tensor it runs the plain version; it never falls back.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -48,6 +56,8 @@ ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
 QMAX = 9.0
+# Entries the tile kernel stages per window (TILE_WIN in csrc/raster_tile.cu).
+TILE_WINDOW = 64
 
 _P, _I = build.P, build.I
 _SIGNATURES = {
@@ -56,6 +66,8 @@ _SIGNATURES = {
     "raster_group_fused_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # feat, origin, out, counts, N, K, tile_px, chunk, early_exit, stream
     "raster_tile_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # tile_px, shape (4,) int32 out
+    "raster_tile_shape": [_I, _P],
 }
 
 
@@ -71,7 +83,9 @@ def _raster_plain(feat, pix_x, pix_y, *, chunk, early_exit, masks=None,
 
     feat (B, F, K); pix_x/pix_y (B, S, P); masks (B, K) int32 — block s of
     list b keeps entry k only if bit s of masks[b, k] and its valid flag are
-    set. Returns out (B, S, 4, P) and counts (B, S, 2) int32.
+    set. Returns out (B, S, 4, P), counts (B, S, 2) int32 and stop (B, S)
+    int64: the chunk boundary at which block s stopped on early exit (K if
+    it never did).
     """
     B, _, K = feat.shape
     S, P = pix_x.shape[1:]
@@ -81,6 +95,7 @@ def _raster_plain(feat, pix_x, pix_y, *, chunk, early_exit, masks=None,
     a_ops = torch.zeros((B, S), dtype=torch.int64, device=dev)
     b_ops = torch.zeros((B, S), dtype=torch.int64, device=dev)
     kept = torch.zeros((B, S), dtype=torch.int64, device=dev)
+    stop = torch.full((B, S), K, dtype=torch.int64, device=dev)
     slot_bits = torch.arange(S, dtype=torch.int32, device=dev)[None, :, None]
     px, py = pix_x[..., None], pix_y[..., None]  # (B, S, P, 1)
 
@@ -130,6 +145,7 @@ def _raster_plain(feat, pix_x, pix_y, *, chunk, early_exit, masks=None,
             # Block-granular early exit: a tile whose pixels are all dead
             # skips the chunk (its carry stays as it was).
             alive = torch.any(t_run > T_EPS, dim=-1)  # (B, S)
+            stop = torch.where(~alive & (stop == K), c0, stop)
             old = (t_run, rgb, a_ops, b_ops, kept)
             new = tuple(
                 torch.where(alive.reshape(B, S, *([1] * (n.ndim - 2))), n, o)
@@ -139,7 +155,7 @@ def _raster_plain(feat, pix_x, pix_y, *, chunk, early_exit, masks=None,
 
     out = torch.cat([rgb.transpose(-1, -2), t_run[:, :, None, :]], dim=2)
     counts = torch.stack([a_ops, b_ops], dim=-1).to(torch.int32)
-    return out, counts
+    return out, counts, stop
 
 
 def raster_tile_plain(feat, tile_origin, tile_px: int, chunk: int = 128,
@@ -149,8 +165,26 @@ def raster_tile_plain(feat, tile_origin, tile_px: int, chunk: int = 128,
     dx, dy = _pixel_offsets(tile_px, feat.device)
     pix_x = (tile_origin[:, 0, None] + dx[None, :])[:, None, :]
     pix_y = (tile_origin[:, 1, None] + dy[None, :])[:, None, :]
-    out, counts = _raster_plain(feat, pix_x, pix_y, chunk=chunk, early_exit=early_exit)
+    out, counts, _ = _raster_plain(feat, pix_x, pix_y, chunk=chunk, early_exit=early_exit)
     return out[:, 0], counts[:, 0]
+
+
+def raster_tile_walk(feat, tile_origin, tile_px: int, chunk: int = 128):
+    """The entries of each tile's list that the tile RM needs with early
+    exit, those before the chunk boundary where the plain version stops (K
+    if it never does), as two (num_tiles,) int64 tensors ``(full,
+    opacity_only)``: the ones up to the last entry with opacity > 0 (or
+    NaN) are read in full, the rest only for their opacity."""
+    _check_chunk(feat, chunk)
+    dx, dy = _pixel_offsets(tile_px, feat.device)
+    pix_x = (tile_origin[:, 0, None] + dx[None, :])[:, None, :]
+    pix_y = (tile_origin[:, 1, None] + dy[None, :])[:, None, :]
+    _, _, stop = _raster_plain(feat, pix_x, pix_y, chunk=chunk, early_exit=True)
+    stop = stop[:, 0]
+    live = ~(feat[:, F_OPACITY] <= 0.0)
+    idx = torch.arange(1, feat.shape[-1] + 1, device=feat.device)
+    full = torch.minimum(stop, torch.where(live, idx, 0).amax(-1))
+    return full, stop - full
 
 
 def raster_group_fused_plain(feat, masks, group_origin, tile_px: int, gf: int,
@@ -163,10 +197,11 @@ def raster_group_fused_plain(feat, masks, group_origin, tile_px: int, gf: int,
     ox = group_origin[:, 0, None] + (slots % gf).to(torch.float32)[None, :] * tile_px
     oy = group_origin[:, 1, None] + (slots // gf).to(torch.float32)[None, :] * tile_px
     dx, dy = _pixel_offsets(tile_px, dev)
-    return _raster_plain(
+    out, counts, _ = _raster_plain(
         feat, ox[..., None] + dx, oy[..., None] + dy, chunk=chunk,
         early_exit=early_exit, masks=masks, tile_capacity=tile_capacity,
     )
+    return out, counts
 
 
 def raster_tile_kernel(
@@ -196,6 +231,18 @@ def raster_tile_kernel(
     build.check_status(lib, status, "raster_tile")
     build.count_launch("raster_tile")
     return out, counts
+
+
+def tile_kernel_shape(tile_px: int) -> dict:
+    """The tile kernel's launch for ``tile_px`` as the CUDA source decides
+    it: threads a block, pixels a thread, whether every pixel slot lies in
+    the tile, and entries a window. Builds the kernel on first use."""
+    lib = build.load("raster_tile", _SIGNATURES)
+    shape = (ctypes.c_int32 * 4)()
+    build.check_status(lib, lib.raster_tile_shape(tile_px, ctypes.addressof(shape)),
+                       "raster_tile_shape")
+    return {"block_threads": shape[0], "pixels_per_thread": shape[1],
+            "full": bool(shape[2]), "window_entries": shape[3]}
 
 
 def raster_group_fused_kernel(
@@ -237,6 +284,77 @@ def raster_group_fused_kernel(
     build.check_status(lib, status, "raster_group_fused")
     build.count_launch("raster_group_fused")
     return out, counts
+
+
+def edge_case_lists(tile_px: int, chunk: int, generator: torch.Generator):
+    """Nine small tile lists at the tile kernel's seams: CPU tensors feat
+    (9, 16, K) float32 and origins (9, 2) float32, K the least multiple of
+    ``chunk`` that holds four windows (256 at chunk 32 or 64, 2,048 at chunk
+    2,048). Entries are faint splats around the tile (opacity 0.01-0.08), so
+    a tile lives to its list's end unless a list says otherwise. With W =
+    TILE_WINDOW, per list:
+
+      0. empty;
+      1-3. W entries (the list ends at a window boundary), W + 1 (one entry
+         past it) and 2W;
+      4. K entries: every window full;
+      5. 3W + 5 entries, opacity 0 at every third and -0.25 at every fifth,
+         and none live in the second window (a window with nothing to blend);
+      6. 3W entries with a NaN opacity at entry 5 and at entry W - 1, the
+         first window's last: two small splats whose pixels turn NaN (and
+         count as dead), while the rest of the tile blends on;
+      7. 3W entries, three opaque tile-wide splats at W + 6 .. W + 8: every
+         pixel dies there, inside the second window, and the tile stops at
+         the next chunk boundary (inside that window at chunk 32, at a window
+         boundary at chunk W, nowhere at chunk 2,048);
+      8. 3W entries, opaque from its first chunk (entries 0-3).
+    """
+    W = TILE_WINDOW
+    K = -(-max(chunk, 4 * W) // chunk) * chunk
+    lengths = [0, W, W + 1, 2 * W, K, 3 * W + 5, 3 * W, 3 * W, 3 * W]
+    N = len(lengths)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=generator, dtype=torch.float64)
+
+    origins = torch.stack([torch.arange(N, dtype=torch.float64) * tile_px,
+                           torch.full((N,), float(tile_px), dtype=torch.float64)], -1)
+    feat = torch.zeros((N, NUM_FEATURES, K), dtype=torch.float64)
+    for i, n in enumerate(lengths):
+        f = feat[i]
+        ox, oy = origins[i].tolist()
+        f[F_MEAN_X, :n] = ox - tile_px / 2 + rand(n) * 2 * tile_px
+        f[F_MEAN_Y, :n] = oy - tile_px / 2 + rand(n) * 2 * tile_px
+        s1, s2 = tile_px * (0.1 + 0.7 * rand(n)), tile_px * (0.1 + 0.7 * rand(n))
+        th = 2 * torch.pi * rand(n)
+        c, s = torch.cos(th), torch.sin(th)
+        a = c * c * s1 * s1 + s * s * s2 * s2  # covariance R diag(s1², s2²) Rᵀ
+        b = c * s * (s1 * s1 - s2 * s2)
+        d = s * s * s1 * s1 + c * c * s2 * s2
+        det = a * d - b * b
+        f[F_CONIC_A, :n], f[F_CONIC_B, :n], f[F_CONIC_C, :n] = d / det, -b / det, a / det
+        f[F_OPACITY, :n] = 0.01 + 0.07 * rand(n)
+        f[F_RGB_R:F_RGB_B + 1, :n] = rand(3, n)
+        f[F_VALID, :n] = 1.0
+
+    k = torch.arange(K)
+    op = feat[5, F_OPACITY]
+    op[(k % 3 == 0) & (k < lengths[5])] = 0.0
+    op[(k % 5 == 0) & (k < lengths[5])] = -0.25
+    op[W:2 * W] = 0.0
+    nan_at = [5, W - 1]  # small splats (sigma 2 px) inside the tile
+    feat[6, F_MEAN_X, nan_at] = origins[6, 0] + torch.tensor([0.25, 0.75], dtype=torch.float64) * tile_px
+    feat[6, F_MEAN_Y, nan_at] = origins[6, 1] + torch.tensor([0.25, 0.75], dtype=torch.float64) * tile_px
+    feat[6, F_CONIC_A, nan_at], feat[6, F_CONIC_B, nan_at], feat[6, F_CONIC_C, nan_at] = (
+        0.25, 0.0, 0.25)
+    feat[6, F_OPACITY, nan_at] = float("nan")
+    for i, opaque in ((7, slice(W + 6, W + 9)), (8, slice(0, 4))):
+        f = feat[i]
+        f[F_MEAN_X, opaque] = origins[i, 0] + tile_px / 2
+        f[F_MEAN_Y, opaque] = origins[i, 1] + tile_px / 2
+        f[F_CONIC_A, opaque], f[F_CONIC_B, opaque], f[F_CONIC_C, opaque] = 1e-6, 0.0, 1e-6
+        f[F_OPACITY, opaque] = 0.97
+    return feat.to(torch.float32), origins.to(torch.float32)
 
 
 def _check_chunk(feat, chunk):

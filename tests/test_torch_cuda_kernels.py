@@ -41,10 +41,13 @@ from repro_torch.kernels.layout import (
     pack_features,
 )
 from repro_torch.kernels.raster_tile import (
+    TILE_WINDOW,
+    edge_case_lists,
     raster_group_fused_kernel,
     raster_group_fused_plain,
     raster_tile_kernel,
     raster_tile_plain,
+    tile_kernel_shape,
 )
 from torch_parity import cuda_device  # noqa: F401
 
@@ -258,19 +261,74 @@ def test_raster_kernels_at_chunk_2048(cuda_device, early_exit):
     assert torch.equal(fused[1][in_image], tile[1][gtile[in_image].long()])
 
 
-@pytest.mark.parametrize("tile,early_exit", [(16, True), (16, False), (32, True), (64, True)])
-def test_tile_raster_kernel_vs_plain(cuda_device, tile, early_exit):
-    """tile 32 and 64 run 4 and 16 pixels per thread (group_baseline's
-    groups-as-tiles case)."""
-    _, _, _, _, feat, _ = _case()
+@pytest.mark.parametrize(
+    "tile,early_exit,chunk",
+    [
+        pytest.param(16, True, 32, id="16-True"),
+        pytest.param(16, False, 32, id="16-False"),
+        pytest.param(32, True, 32, id="32-True"),
+        pytest.param(64, True, 32, id="64-True"),
+        pytest.param(16, True, 256, id="16-True-chunk256"),
+        pytest.param(16, True, 2048, id="16-True-chunk2048"),
+        pytest.param(16, False, 2048, id="16-False-chunk2048"),
+        pytest.param(8, True, 32, id="8-True"),
+        pytest.param(8, False, 32, id="8-False"),
+    ],
+)
+def test_tile_raster_kernel_vs_plain(cuda_device, tile, early_exit, chunk):
+    """tile 8 runs one warp at 2 pixels a thread, 16 two warps at 4, 32
+    eight warps at 4 and 64 sixteen warps at 8 (group_baseline's
+    groups-as-tiles case). Chunk 256 spans four windows; chunk 2048 runs on
+    the 20,000-gaussian lists of up to 2,444 entries (K = 4096), where no
+    window is a vote point."""
+    if chunk == 2048:
+        _, _, _, _, feat, _ = _case(gaussians=20000, capacity=4096, chunk=chunk)
+    else:
+        _, _, _, _, feat, _ = _case()
     feat = feat[:12]
     origins = torch.stack([torch.arange(12) % 4, torch.arange(12) // 4], -1).float() * tile
-    want, want_c = raster_tile_plain(feat, origins, tile, chunk=32, early_exit=early_exit)
+    want, want_c = raster_tile_plain(feat, origins, tile, chunk=chunk, early_exit=early_exit)
     got, got_c = raster_tile_kernel(feat.to(cuda_device), origins.to(cuda_device), tile,
-                                    chunk=32, early_exit=early_exit)
+                                    chunk=chunk, early_exit=early_exit)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
     assert torch.equal(got_c.cpu(), want_c)
+    assert int(want_c[:, 1].sum()) > 0
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("chunk", [32, TILE_WINDOW, 2048])
+@pytest.mark.parametrize("tile", [4, 6, 8, 12, 16, 32, 48, 64])
+def test_tile_raster_kernel_edge_cases(cuda_device, tile, chunk, early_exit):
+    """The package's edge_case_lists: lists that end at a window boundary
+    and one entry past it, interior opacity <= 0 and NaN, an empty list,
+    tiles that die inside a window and from their first chunk, at chunks
+    below, at and past the window. Tiles 4, 6, 12 and 48 are not a whole
+    number of warps x pixels a thread (1, 2, 4 and 8 pixels a thread with
+    idle slots). rgb within 1e-5, T within 1e-4 relative (a stop one chunk
+    early or late would show), NaN in the same places, counters equal."""
+    feat, origins = edge_case_lists(tile, chunk, torch.Generator().manual_seed(3))
+    want, want_c = raster_tile_plain(feat, origins, tile, chunk, early_exit)
+    before = build.LAUNCHES["raster_tile"]
+    got, got_c = raster_tile_kernel(feat.to(cuda_device), origins.to(cuda_device), tile,
+                                    chunk, early_exit)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["raster_tile"] == before + 1
+    got = got.cpu()
+    torch.testing.assert_close(got[:, :3], want[:, :3], atol=1e-5, rtol=0, equal_nan=True)
+    torch.testing.assert_close(got[:, 3], want[:, 3], atol=1e-30, rtol=1e-4, equal_nan=True)
+    assert torch.equal(got_c.cpu(), want_c)
+
+
+@pytest.mark.parametrize("tile,threads,npix,full", [
+    (4, 32, 1, False), (6, 32, 2, False), (8, 32, 2, True), (12, 64, 4, False),
+    (16, 64, 4, True), (32, 256, 4, True), (48, 512, 8, False), (64, 512, 8, True)])
+def test_tile_kernel_shape(cuda_device, tile, threads, npix, full):
+    """The launch the CUDA source picks: warps enough for 4 pixels a thread,
+    at most 16, and its window is the one edge_case_lists places its seams
+    by."""
+    assert tile_kernel_shape(tile) == {"block_threads": threads, "pixels_per_thread": npix,
+                                       "full": full, "window_entries": TILE_WINDOW}
 
 
 def test_kernels_refuse_bad_inputs(cuda_device):

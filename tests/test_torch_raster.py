@@ -4,10 +4,12 @@ kernels against the JAX rasterizer and the Pallas kernels in interpret mode
 identical counters. The CUDA kernels against the plain versions are in
 test_torch_cuda_kernels.py."""
 import functools
+import re
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core import make_camera, random_scene
 from repro.core.bitmask import compact_tiles, generate_bitmasks
@@ -20,12 +22,15 @@ from repro.kernels.raster_tile import raster_group_fused_kernel as pallas_fused
 from repro.kernels.raster_tile import raster_tile_kernel as pallas_tile
 from repro_torch.core.grouping import GridSpec
 from repro_torch.core.raster import rasterize
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
 from repro_torch.kernels.layout import F_CONIC_A, F_CONIC_C, F_OPACITY, F_VALID
 from repro_torch.kernels.raster_tile import (
+    TILE_WINDOW,
+    edge_case_lists,
     raster_group_fused_kernel,
     raster_tile_kernel,
     raster_tile_plain,
+    raster_tile_walk,
 )
 from torch_parity import n, proj_to_torch, t, table_to_torch
 
@@ -128,3 +133,53 @@ def test_plain_tile_raster_empty_tiles():
     assert (n(out)[:, :3] == 0).all() and (n(out)[:, 3] == 1).all()
     assert (n(counts) == 0).all()
 
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("chunk", [32, TILE_WINDOW, 2048])
+def test_plain_tile_raster_vs_pallas_on_edge_case_lists(chunk, early_exit):
+    """The package's edge_case_lists (lists ending at and one past a window
+    boundary, interior opacity <= 0 and NaN, an empty list, tiles that die
+    inside a window or from their first chunk) through the plain version and
+    the Pallas kernel in interpret mode: images at TOL with NaN in the same
+    places, counters equal."""
+    feat, origins = edge_case_lists(16, chunk, torch.Generator().manual_seed(3))
+    want, want_c = pallas_tile(n(feat), n(origins), 16, chunk=chunk, interpret=True,
+                               early_exit=early_exit, with_stats=True)
+    got, got_c = raster_tile_kernel(feat, origins, 16, chunk=chunk, early_exit=early_exit)
+    np.testing.assert_allclose(n(got), np.asarray(want), equal_nan=True, **TOL)
+    np.testing.assert_array_equal(n(got_c), np.asarray(want_c))
+    T = n(got)[:, 3]
+    assert (T[0] == 1).all() and (n(got_c)[0] == 0).all()            # the empty list
+    assert np.isnan(T[6]).any() and not np.isnan(T[6]).all()       # NaN in a few pixels
+    assert (n(got_c)[1:6, 1] > 0).all() and (T[1:4] > 1e-4).any(-1).all()  # alive to the end
+    if early_exit and chunk < feat.shape[-1]:
+        assert (T[7:9] <= 1e-4).all()  # stopped after the tile died
+
+
+def test_tile_window_matches_the_kernel_source():
+    """edge_case_lists places its seams by TILE_WINDOW: it must be the
+    window the CUDA source stages."""
+    src = (build.CSRC / "raster_tile.cu").read_text()
+    assert re.search(r"constexpr int TILE_WIN = (\d+);", src).group(1) == str(TILE_WINDOW)
+
+
+@pytest.mark.parametrize("chunk", [32, TILE_WINDOW, 2048])
+def test_tile_walk_is_what_early_exit_needs(chunk):
+    """raster_tile_walk on edge_case_lists: each list read in full up to its
+    last live entry or the boundary where it stops (list 7 dies at entry W +
+    8, list 8 in its first chunk), the rest of the stop only for opacity;
+    and the output depends on nothing past what it counts."""
+    W = TILE_WINDOW
+    feat, origins = edge_case_lists(16, chunk, torch.Generator().manual_seed(3))
+    K = feat.shape[-1]
+    full, rest = raster_tile_walk(feat, origins, 16, chunk)
+    stop7 = min(-(-(W + 9) // chunk) * chunk, K)
+    want = [0, W, W + 1, 2 * W, K, 3 * W + 5, 3 * W, min(stop7, 3 * W), min(chunk, 3 * W)]
+    assert full.tolist() == want
+    assert (full + rest).tolist() == [K] * 7 + [stop7, chunk]
+    cut = feat.clone()
+    cut[torch.arange(K) >= full[:, None, None].expand_as(cut)] = 0.0
+    got, got_c = raster_tile_plain(cut, origins, 16, chunk)
+    want_out, want_c = raster_tile_plain(feat, origins, 16, chunk)
+    torch.testing.assert_close(got, want_out, rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(got_c, want_c)
