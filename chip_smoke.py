@@ -10,7 +10,8 @@ line each:
   1. device   — the card (nvidia-smi name and power limit), the kernels'
                 build times (one nvcc per source, started together), and
                 the block shape, registers, shared memory and spills of
-                both raster kernels and the BGM.
+                both raster kernels, the BGM and the GSM (a GSM instance
+                that spills fails the run).
   2. kernel   — each CUDA kernel against its plain PyTorch version on the
                 main path's inputs (bitmask: 3 methods, bit-exact; raster:
                 max-abs <= 1e-4, counters within 1e-5 relative), with
@@ -41,7 +42,11 @@ line each:
                 equal to torch.sort, live keys in the bin table's depth
                 order; then K = 16384 and 65536 (global-memory passes)
                 against the plain network. Kernel, plain and torch.sort +
-                gather times.
+                gather times; kernel times at K = 16384 and 65536 on the
+                table cut into as many whole rows that long as it holds.
+     gsm_edge_cases — the bitonic kernel against its plain version (run on
+                the host) on the package's edge_case_rows, K = 1 .. 65536
+                (every layout boundary of the kernel), bit for bit.
   3. render   — the main path: engine.open(scene, cfg).render(cam) in gstg
                 mode on the cuda backend, 1,026,000 gaussians at 1952x1088.
                 Launch counts are zeroed just before each path (gsm, render,
@@ -82,6 +87,7 @@ MAIN_GAUSSIANS = 1_026_000
 LOSSLESS_GAUSSIANS = 120_000
 BATCH_AZIMUTHS_DEG = (0.0, -3.0, 3.0, 6.0)   # the batch phase's four cameras
 GSM_WIDE_K = (16384, 65536)                  # rows past one block's shared span
+GSM_EDGE_MAX_LOG2 = 16                       # gsm_edge_cases: K = 1 .. 65536
 CFG_KW = dict(
     mode="gstg", tile=16, group=64, boundary_group="ellipse", boundary_tile="ellipse",
     group_capacity=8192, tile_capacity=2048, span=6, chunk=32,
@@ -204,6 +210,22 @@ def bgm_build_report(build, methods) -> dict:
                 lambda m: f"GF={m.group(1)},{methods[int(m.group(2))]}")}
 
 
+def bitonic_build_report(build, block_shape) -> dict:
+    """The GSM kernel as built: its block for the main path's rows (threads,
+    slots a thread holds in registers, slots a block sorts, dynamic shared
+    memory), as the CUDA source reports it, and, per instance (E slots a
+    thread x T threads, and the global-memory pass), registers, static
+    shared memory and spills, with the spilled bytes."""
+    instances = ptxas_instances(
+        build, "bitonic_sort",
+        r"bitonic_(?:block_kernelILi(\d+)ELi(\d+)E|global_pass_kernel)",
+        lambda m: f"E={m.group(1)},T={m.group(2)}" if m.group(1) else "global_pass")
+    for inst in instances.values():
+        inst["spill_bytes"] = sum(int(b) for b in re.findall(
+            r"(\d+) bytes spill", inst.get("spills", "")))
+    return {**block_shape(CFG_KW["group_capacity"]), "instances": instances}
+
+
 def main() -> int:
     import torch
 
@@ -248,7 +270,12 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
         bitmask_plain,
         edge_case_block,
     )
-    from repro_torch.kernels.bitonic_sort import bitonic_sort_kernel, bitonic_sort_plain
+    from repro_torch.kernels.bitonic_sort import (
+        bitonic_sort_kernel,
+        bitonic_sort_plain,
+        block_shape,
+        edge_case_rows,
+    )
     from repro_torch.kernels.layout import LANE, pack_features
     from repro_torch.kernels.raster_tile import (
         TILE_WINDOW,
@@ -309,13 +336,21 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
             ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
                            if "registers" in ln or "spill" in ln]
     tile_report = tile_build_report(build, tile_kernel_shape) if on_card else None
+    gsm_report = bitonic_build_report(build, block_shape) if on_card else None
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": count, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
           "build_wall_s": round(build_wall, 3), "ptxas": ptxas,
           "raster_group_fused": fused_build_report(build),
           "raster_tile": tile_report,
-          "bitmask_gen": bgm_build_report(build, KERNEL_METHODS)})
+          "bitmask_gen": bgm_build_report(build, KERNEL_METHODS),
+          "bitonic_sort": gsm_report})
+    if gsm_report:
+        spilled = {k: v["spill_bytes"] for k, v in gsm_report["instances"].items()
+                   if v["spill_bytes"]}
+        check(gsm_report["instances"] and not spilled,
+              f"bitonic_sort instances spill (bytes): {spilled}" if spilled
+              else "no ptxas report for the bitonic_sort instances")
     if tile_report:  # edge_case_lists places its seams by the kernel's window
         check(tile_report["window_entries"] == TILE_WINDOW,
               f"the tile kernel stages {tile_report['window_entries']} entries a window, "
@@ -601,7 +636,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     plain_ms = time_ms(lambda: bitonic_sort_plain(keys, payload_f))
     library_ms = time_ms(lambda: torch.gather(payload_f, -1, torch.sort(keys, dim=-1).indices))
     stages_n = Ks.bit_length() * (Ks.bit_length() - 1) // 2
-    wide = {}
+    wide, wide_ms = {}, {}
     for kw in GSM_WIDE_K:
         rows = max(1, min(4, Gs * Ks // kw))
         wk = keys.reshape(-1)[: rows * kw].reshape(rows, kw)
@@ -612,10 +647,15 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
         wide[kw] = bool(torch.equal(bits(got[0]), bits(want[0]))
                         and torch.equal(bits(got[1]), bits(want[1]))
                         and torch.equal(bits(got[0]), bits(torch.sort(wk, dim=-1).values)))
+        # Timed on the table cut into as many whole rows of kw as it holds.
+        cut = Gs * Ks // kw * kw
+        tk, tv = keys.reshape(-1)[:cut].view(-1, kw), payload_f.reshape(-1)[:cut].view(-1, kw)
+        wide_ms[kw] = time_ms(lambda: bitonic_sort_kernel(tk, tv))
     emit({"phase": "gsm", "shape": [Gs, Ks], "live_entries": live, "launches": gsm_launches,
           "bitwise_vs_plain": same_plain, "keys_bitwise_vs_torch_sort": same_lib,
           "live_keys_in_table_order": live_order, "payload_carries_its_key": carried,
           "wide_rows_bitwise_vs_plain": {str(k): v for k, v in wide.items()},
+          "wide_ms": {str(k): v for k, v in wide_ms.items()},
           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
           "compare_exchanges": stages_n * (Ks // 2) * Gs})
     check(same_plain, "gsm: bitonic kernel differs from its plain version")
@@ -624,6 +664,21 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     for kw, ok in wide.items():
         check(ok, f"gsm: bitonic kernel differs from its plain version at K = {kw}")
     check(gsm_launches["bitonic_sort"] > 0, "gsm: bitonic_sort was not launched")
+
+    # The package's edge-case rows, K = 1 .. 65536: bit for bit.
+    edge = {"cases": 0, "words": 0, "differing_words": 0, "differing_cases": []}
+    for p in range(GSM_EDGE_MAX_LOG2 + 1):
+        k_e, v_e = edge_case_rows(2**p, torch.Generator().manual_seed(p))
+        want = bitonic_sort_plain(k_e, v_e)
+        got = bitonic_sort_kernel(k_e.to(dev), v_e.to(dev))
+        bad = sum(int((bits(g).cpu() != bits(w)).sum()) for g, w in zip(got, want))
+        edge["cases"] += 1
+        edge["words"] += 2 * k_e.numel()
+        edge["differing_words"] += bad
+        if bad:
+            edge["differing_cases"].append(f"K={2**p}: {bad}")
+    emit({"phase": "gsm", "check": "gsm_edge_cases", **edge})
+    check(edge["differing_words"] == 0, f"gsm_edge_cases: {edge['differing_cases']}")
     kernels["bitonic_sort"] = dict(
         max_abs_err=float((sk - pk).abs().nan_to_num().max()), ms=ms, plain_ms=plain_ms,
         nbytes=4 * Gs * Ks * 4, ops=stages_n * (Ks // 2) * Gs, library_ms=library_ms)

@@ -45,6 +45,20 @@ def tile_pixel_coords(grid: GridSpec, device=None) -> torch.Tensor:
     return base[:, None, :] + offs[None, :, :]
 
 
+def settle_cpu_exp() -> None:
+    """Make MKL's vector math library, behind torch's CPU exp, choose its
+    kernels on this thread. It makes that choice on its first call in a
+    process; when that first call is a parallel one, threads that start
+    before the choice is made compute their blocks with another, less
+    accurate kernel, enough to move a plain rasterizer's pixels by up to
+    about 5e-5. Each module whose plain version makes a parallel exp calls
+    this when it is imported."""
+    torch.exp(torch.ones(1))
+
+
+settle_cpu_exp()
+
+
 def alpha_at(pix, mean2d, conic, opacity):
     """Alpha with the q<=9 and 1/255 cutoffs. Shapes broadcast; returns (...)."""
     d = pix - mean2d

@@ -9,14 +9,21 @@ The network is not stable, but it is deterministic: ties, ``±0.0`` and the
 word for word. ``bitonic_sort_plain`` runs the TPU kernel's network stage
 for stage (``_bitonic_network``), so both agree bitwise with it.
 
-The CUDA source is ``csrc/bitonic_sort.cu``: one block per row, the row in
-shared memory, every stage there; rows longer than the shared-memory span
-add global-memory passes for the wide stages. ``bitonic_sort_kernel``
-launches it for CUDA tensors and runs ``bitonic_sort_plain`` for CPU
-tensors; it never falls back from one to the other.
+The CUDA source is ``csrc/bitonic_sort.cu``: one block per row (per chunk
+of ``SPAN`` slots for longer rows), the chunk held in registers, E slots a
+thread. A stage runs in registers, through warp shuffles, or, for the
+distances that span warps, in registers again after a round trip through
+shared memory that swaps those index bits into the registers
+(``block_shape`` reads the launch from the built library). Rows longer
+than the span add global-memory passes for the wide stages.
+``bitonic_sort_kernel`` launches it for CUDA tensors and runs
+``bitonic_sort_plain`` for CPU tensors; it never falls back from one to
+the other. ``edge_case_rows`` gives the rows that reach each of the
+kernel's code paths.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -27,6 +34,8 @@ _P, _I = build.P, build.I
 _SIGNATURES = {
     # keys, vals, keys_out, vals_out, G, K, stream
     "bitonic_sort_launch": [_P, _P, _P, _P, _I, _I, _P],
+    # K, shape[4]
+    "bitonic_block_shape": [_I, _P],
 }
 _MAX_ROWS = 65535  # the launch grid's y extent
 
@@ -91,6 +100,69 @@ def bitonic_sort_kernel(
     build.check_status(lib, status, "bitonic_sort")
     build.count_launch("bitonic_sort")
     return keys_out, vals_out
+
+
+def block_shape(K: int) -> dict:
+    """The block kernel's launch for rows of ``K`` as the CUDA source
+    decides it: threads a block, slots a thread holds in registers, slots a
+    block sorts (the row, or ``SPAN`` of it) and bytes of dynamic shared
+    memory. Builds the kernel on first use."""
+    lib = build.load("bitonic_sort", _SIGNATURES)
+    shape = (ctypes.c_int32 * 4)()
+    build.check_status(lib, lib.bitonic_block_shape(K, ctypes.addressof(shape)),
+                       "bitonic_block_shape")
+    return {"block_threads": shape[0], "slots_per_thread": shape[1], "block_span": shape[2],
+            "dynamic_smem_bytes": shape[3]}
+
+
+def edge_case_rows(K: int, generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ten seeded rows of ``K`` slots that put the network's edge cases to a
+    sort: CPU tensors keys (10, K) float32 and payload (10, K) float32 (a
+    permutation of the slot indices per row). By row:
+
+      0. uniform keys in [-1, 1) with about one in eight NaN;
+      1. signed zeros, with a few +-1 among them;
+      2. all +inf (a live length of 0);
+      3. all equal;
+      4. sorted ascending, with ties;
+      5. sorted descending, with ties;
+      6. a live length of 1: one key, then +inf padding;
+      7. keys from a small pool (ties, +-0.0, +-inf, NaN), padded with +inf
+         past a random live length;
+      8. uniform keys, padded with +inf past half the row;
+      9. -inf, NaN and +inf only.
+
+    Every row but 2, 6, 7 and 8 is live to its end (a live length of K). Taken
+    over K = 1, 2, 4, ..., 65536 the rows reach every code path of the CUDA
+    kernel: one lane, one warp, one block, the register, shuffle and
+    shared-memory stages, and the global-memory passes past ``SPAN``."""
+    f32 = torch.float32
+    inf, nan = float("inf"), float("nan")
+
+    def rand(n):
+        return torch.rand(n, generator=generator, dtype=torch.float64)
+
+    def pick(values, n):
+        idx = torch.randint(len(values), (n,), generator=generator)
+        return torch.tensor(values, dtype=f32)[idx]
+
+    pool = [-2.5, -0.0, 0.0, 0.5, 1.0, 7.25, -inf, inf, nan]
+    ties = pick([-1.0, 0.0, 0.25, 3.0], K)
+    keys = torch.empty((10, K), dtype=f32)
+    keys[0] = torch.where(rand(K) < 0.125, nan, rand(K) * 2 - 1).to(f32)
+    keys[1] = torch.where(rand(K) < 0.9, pick([-0.0, 0.0], K), pick([-1.0, 1.0], K))
+    keys[2] = inf
+    keys[3] = 0.5
+    keys[4] = torch.sort(ties).values
+    keys[5] = torch.sort(ties, descending=True).values
+    keys[6] = inf
+    keys[6, 0] = float(rand(1)[0]) * 2 - 1
+    live = int(torch.randint(K + 1, (1,), generator=generator))
+    keys[7] = torch.where(torch.arange(K) < live, pick(pool, K), inf)
+    keys[8] = torch.where(torch.arange(K) < K // 2, (rand(K) * 2 - 1).to(f32), inf)
+    keys[9] = pick([-inf, nan, inf], K)
+    payload = torch.stack([torch.randperm(K, generator=generator) for _ in range(10)])
+    return keys, payload.to(f32)
 
 
 def _check_shape(keys: torch.Tensor, payload: torch.Tensor) -> Tuple[int, int]:

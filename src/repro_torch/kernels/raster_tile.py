@@ -59,6 +59,11 @@ QMAX = 9.0
 # Entries the tile kernel stages per window (TILE_WIN in csrc/raster_tile.cu).
 TILE_WINDOW = 64
 
+# Before raster_tile_plain's first parallel exp, as core/raster.py's
+# settle_cpu_exp does for the plain rasterizer: MKL's exp chooses its kernels
+# on its first call in a process, and a parallel first call can race it.
+torch.exp(torch.ones(1))
+
 _P, _I = build.P, build.I
 _SIGNATURES = {
     # feat, masks, origin, out, counts, G, K, tile_px, gf, chunk,

@@ -1,7 +1,8 @@
 """The port's GSM bitonic sort against the JAX package's Pallas kernel in
 interpret mode: keys and payload bitwise equal (the network is
-deterministic, so ties, ±0.0 and +inf padding land in one fixed order),
-and the int32 entry point ``sort_groups_bitonic`` against its JAX twin."""
+deterministic, so ties, ±0.0, NaN and +inf padding land in one fixed
+order), on seeded rows and on the package's ``edge_case_rows``, and the
+int32 entry point ``sort_groups_bitonic`` against its JAX twin."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,7 +11,11 @@ import torch
 from repro.kernels.bitonic_sort import bitonic_sort_kernel as jax_bitonic
 from repro.kernels.ops import sort_groups_bitonic as jax_sort_groups
 from repro_torch.kernels import build, ops
-from repro_torch.kernels.bitonic_sort import bitonic_sort_kernel, bitonic_sort_plain
+from repro_torch.kernels.bitonic_sort import (
+    bitonic_sort_kernel,
+    bitonic_sort_plain,
+    edge_case_rows,
+)
 from torch_parity import n, t
 
 POOL = np.array([-2.5, -0.0, 0.0, 0.5, 1.0, 7.25, np.inf], np.float32)
@@ -48,6 +53,24 @@ def test_plain_matches_pallas_bitwise(K, ties):
     for g in range(keys.shape[0]):
         idx = n(got_v)[g].astype(np.int64)
         assert sorted(idx.tolist()) == list(range(K))
+
+
+@pytest.mark.parametrize("K", [2**p for p in range(11)])
+def test_plain_matches_pallas_on_edge_case_rows(K):
+    """edge_case_rows (NaN, ±0.0, all +inf, all equal, sorted either way,
+    live lengths 0, 1 and K) through the plain network and the Pallas kernel
+    in interpret mode: keys and payload bitwise equal. Up to K = 1024 here;
+    the cuda tests and chip_smoke take the kernel on to 65,536."""
+    keys, payload = edge_case_rows(K, torch.Generator().manual_seed(K))
+    want_k, want_v = jax_bitonic(jnp.asarray(n(keys)), jnp.asarray(n(payload)), interpret=True)
+    got_k, got_v = bitonic_sort_plain(keys, payload)
+    np.testing.assert_array_equal(_bits(n(got_k)), _bits(want_k))
+    np.testing.assert_array_equal(_bits(n(got_v)), _bits(want_v))
+    # The NaN-free rows come out sorted; the payload stays a permutation.
+    clean = ~keys.isnan().any(1)
+    assert torch.equal(got_k[clean], torch.sort(keys[clean], dim=1).values)
+    assert torch.equal(torch.sort(got_v, dim=1).values,
+                       torch.arange(K, dtype=torch.float32).expand(10, K))
 
 
 def test_signed_zeros_keep_the_network_order():

@@ -31,7 +31,11 @@ from repro_torch.core.gaussians import random_scene
 from repro_torch.core.grouping import GridSpec
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.bitmask_gen import bitmask_kernel, bitmask_plain, edge_case_block
-from repro_torch.kernels.bitonic_sort import bitonic_sort_kernel, bitonic_sort_plain
+from repro_torch.kernels.bitonic_sort import (
+    bitonic_sort_kernel,
+    bitonic_sort_plain,
+    edge_case_rows,
+)
 from repro_torch.kernels.layout import (
     F_CONIC_A,
     F_CONIC_C,
@@ -411,6 +415,18 @@ def test_bitonic_kernel_edge_cases(cuda_device):
     empty = torch.empty((0, 64), device=cuda_device)
     out_k, out_v = bitonic_sort_kernel(empty, empty)
     assert out_k.shape == out_v.shape == (0, 64)
+
+
+@pytest.mark.parametrize("K", [2**p for p in range(17)])
+def test_bitonic_kernel_on_edge_case_rows(cuda_device, K):
+    """The package's edge_case_rows (NaN, ±0.0, all +inf, all equal, sorted
+    either way, live lengths 0, 1 and K) at every K from one lane to four
+    blocks' spans: keys and payload bitwise equal to the plain network."""
+    keys, payload = edge_case_rows(K, torch.Generator().manual_seed(K))
+    want = bitonic_sort_plain(keys, payload)
+    got = bitonic_sort_kernel(keys.to(cuda_device), payload.to(cuda_device))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
 
 
 def test_bitonic_kernel_refuses_bad_inputs(cuda_device):

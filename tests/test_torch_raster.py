@@ -4,7 +4,12 @@ kernels against the JAX rasterizer and the Pallas kernels in interpret mode
 identical counters. The CUDA kernels against the plain versions are in
 test_torch_cuda_kernels.py."""
 import functools
+import os
 import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -60,6 +65,38 @@ def test_rasterize_matches_reference(early_exit):
     assert int(got.alpha_ops) == int(np.asarray(want.alpha_ops))
     assert int(got.blend_ops) == int(np.asarray(want.blend_ops))
     np.testing.assert_array_equal(n(got.processed), np.asarray(want.processed))
+
+
+def test_first_parallel_exp_after_import_is_exact():
+    """Importing the port's raster module makes MKL's vector math library
+    choose its kernels on one thread, before any parallel call
+    (``core/raster.py::settle_cpu_exp``): a process's first parallel exp
+    (as in the plain rasterizer) then matches the same exp on one thread bit
+    for bit. Without that, a first parallel call sometimes computed whole
+    thread blocks with a less accurate kernel, which is what made
+    test_rasterize_matches_reference fail now and then. Only the first
+    parallel call of a process can race, so this starts 40 fresh processes,
+    8 at a time: at the rate seen without the fix (17 of 200 processes) it
+    catches a missing warm-up with probability 1 - 0.915**40, about 97%. On
+    a torch build without MKL it holds trivially."""
+    code = textwrap.dedent("""
+        import numpy as np
+        import repro_torch.core.raster  # noqa: F401
+        import torch
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.uniform(-4.5, 0.0, 36 * 256 * 32).astype(np.float32))
+        first = torch.exp(x)
+        torch.set_num_threads(1)
+        print(int((first.view(torch.int32) != torch.exp(x).view(torch.int32)).sum()))
+    """)
+    src = str(Path(sys.modules["repro_torch"].__file__).resolve().parents[1])  # .../src
+    env = {**os.environ, "PYTHONPATH": src}
+    outs = []
+    for _ in range(5):
+        procs = [subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                                  env=env, text=True) for _ in range(8)]
+        outs += [(p.communicate(timeout=300)[0].strip(), p.returncode) for p in procs]
+    assert outs == [("0", 0)] * 40
 
 
 def _with_opacity(feat, variant):
