@@ -61,8 +61,32 @@ line each:
                 gaussians, 1952x1088, camera twice as far so that no list
                 is cut): bitwise-equal images; both frames' times (CUDA
                 events, median of 10 after a warm-up) and their ratio.
-  6. kernels  — every ported kernel: launches, error, times, bound,
+     cost_model — the analytic cost model (core/cost_model.py) on both
+                frames' counters: every stage finite and non-negative (the
+                baseline has no bitmask stage), totals and energies
+                positive, gstg's total below tile_baseline's. Its outputs
+                are the model's estimates for the paper's ASIC, not times
+                of this card.
+  6. train    — scene training (core/train.py) on the main path's scene,
+                camera and config, backend reference, outside inference
+                mode: the main path's image is the target, the scene is
+                perturbed (means + 0.08 N(0,1), opacity - 1, sh + 0.1
+                N(0,1)), then 4 AdamW steps. Checks: finite losses, the
+                last below the first; at step 0 every gradient field finite
+                and not all zero, and the forward image bitwise equal to an
+                inference-mode render. Prints each step's loss and PSNR,
+                step_ms (median of steps 2-4, host clock to synchronize),
+                peak_mem_gb (GiB), the phase's seconds, and one more loss
+                and backward under torch.profiler (device time and the top
+                kernels).
+     train_grad_vs_host — scene_loss and its five gradients on a small
+                frame (20,000 gaussians, 256x192, overflow 0), on the card
+                and on the host with the same code: loss rtol 1e-4, each
+                gradient max-abs within 1e-4 of its largest magnitude (the
+                CPU tests' bounds against the JAX package).
+  7. kernels  — every ported kernel: launches, error, times, bound,
                 library time (torch.sort + gather for the bitonic sort).
+                The train phase launches none of them.
 
 The last line is {"ok": true, "device": {...}}; any failed check exits
 non-zero before it. Without CUDA, or without the repository beside this
@@ -70,6 +94,7 @@ file, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -123,6 +148,12 @@ OPS_PER_ALPHA = 17
 OPS_PER_BLEND = 9
 # wide_chunk: the cuda tests' 20,000-gaussian frame, lists up to ~2,400.
 WIDE_CHUNK, WIDE_GAUSSIANS, WIDE_SIZE = 2048, 20_000, (256, 192)
+# train: AdamW steps at the main path's size; train_grad_vs_host: a frame the
+# host differentiates in seconds, and the CPU tests' bounds against JAX.
+TRAIN_STEPS = 4
+HOST_GAUSSIANS, HOST_SIZE, HOST_TILE_CAPACITY = 20_000, (256, 192), 1024
+LOSS_RTOL = 1e-4
+GRAD_TOL = 1e-4           # max-abs difference over the field's largest magnitude
 
 
 def emit(obj) -> None:
@@ -226,6 +257,146 @@ def bitonic_build_report(build, block_shape) -> dict:
     return {**block_shape(CFG_KW["group_capacity"]), "instances": instances}
 
 
+def perturbed(scene, gen):
+    """The training example's start: means + 0.08 N(0,1), opacity - 1,
+    sh + 0.1 N(0,1), drawn from ``gen`` on the scene's device."""
+    import torch
+
+    def noise(x):
+        return torch.randn(x.shape, generator=gen, device=x.device)
+
+    return dataclasses.replace(scene, means3d=scene.means3d + 0.08 * noise(scene.means3d),
+                               opacity=scene.opacity - 1.0, sh=scene.sh + 0.1 * noise(scene.sh))
+
+
+def loss_and_grads(scene, cam, target, cfg, lam):
+    """scene_loss of ``scene`` and its gradient per field, by autograd."""
+    import torch
+    from repro_torch.core.gaussians import SCENE_FIELDS
+    from repro_torch.core.train import scene_loss, trainable
+
+    leaves = trainable(scene)
+    loss, img = scene_loss(leaves, cam, target, cfg, lam)
+    grads = torch.autograd.grad(loss, [getattr(leaves, f) for f in SCENE_FIELDS])
+    return loss.detach(), img.detach(), dict(zip(SCENE_FIELDS, grads))
+
+
+def profile_step(on_card, fn, top=12) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall time, the device
+    time of all its kernels, and the ``top`` kernels by device time (ms and
+    launches). Operator rows are left out: they repeat their kernels'
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    t = time.perf_counter()
+    with profile(activities=acts) as prof:
+        fn()
+        if on_card:
+            torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return {"wall_ms": wall_ms, "device_ms": sum(r[1] for r in rows),
+            "top_kernels_ms": [{"kernel": k[:120], "ms": ms, "launches": n}
+                               for k, ms, n in rows[:top]]}
+
+
+def train_phase(dev, on_card, check, cam, target, n_main, width, height) -> None:
+    """Scene training on the main path's scene, camera and config through
+    the reference backend, then the card's gradients against the host's on
+    a small frame. Runs outside inference mode: autograd saves no
+    inference tensor."""
+    import torch
+
+    from repro_torch.core import RenderConfig, make_camera, render, scene_like_paper
+    from repro_torch.core.gaussians import random_scene
+    from repro_torch.core.train import SceneTrainConfig, make_train_step
+    from repro_torch.optim import adamw_init
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    cfg = RenderConfig(backend="reference", **CFG_KW)
+    tcfg = SceneTrainConfig()
+    init = perturbed(scene_like_paper("train", n_main, device=dev),
+                     torch.Generator(device=dev).manual_seed(1))
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    # Step 0: gradients, and the forward image against an inference render.
+    _, img0, grads = loss_and_grads(init, cam, target, cfg, tcfg.lambda_dssim)
+    with torch.inference_mode():
+        plain = render(init, cam, cfg)
+    forward_bitwise = bool(torch.equal(img0, plain.image))
+    overflow = plain.stats.as_dict()["overflow"]
+    grad_stats = {k: {"finite": bool(torch.isfinite(g).all()), "max_abs": float(g.abs().max())}
+                  for k, g in grads.items()}
+    del img0, grads, plain
+
+    step = make_train_step(cam, cfg, tcfg)
+    scene, opt = init, adamw_init(init)
+    losses, psnrs, step_ms = [], [], []
+    for i in range(TRAIN_STEPS):
+        sync()
+        t = time.perf_counter()
+        scene, opt, loss, p = step(scene, opt, target, i)
+        sync()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+        psnrs.append(float(p))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    profile = profile_step(on_card, lambda: loss_and_grads(scene, cam, target, cfg,
+                                                           tcfg.lambda_dssim))
+    del scene, opt, init
+    emit({"phase": "train", "gaussians": n_main, "width": width, "height": height,
+          "steps": TRAIN_STEPS, "config": CFG_KW, "backend": "reference",
+          "losses": losses, "psnrs": psnrs, "step_ms": statistics.median(step_ms[1:]),
+          "step_ms_each": step_ms, "peak_mem_gb": peak, "step0_overflow": overflow,
+          "step0_forward_bitwise_vs_inference_render": forward_bitwise,
+          "step0_grads": grad_stats, "profile": profile,
+          "phase_s": time.perf_counter() - t_phase})
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"train: losses not finite or not falling: {losses}")
+    check(all(g["finite"] and g["max_abs"] > 0 for g in grad_stats.values()),
+          f"train: a step-0 gradient is not finite or all zero: {grad_stats}")
+    check(forward_bitwise, "train: the step-0 forward image differs from an inference render")
+
+    # The same loss and gradients on the card and on the host.
+    t_check = time.perf_counter()
+    h_w, h_h = HOST_SIZE
+    h_cam = make_camera((0.0, 1.2, 5.0), (0, 0, 0), h_w, h_h)
+    h_cfg = RenderConfig(backend="reference", **{**CFG_KW, "group_capacity": 4096,
+                                                 "tile_capacity": HOST_TILE_CAPACITY})
+    h_scene = random_scene(HOST_GAUSSIANS, extent=3.0, generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        h_ref = render(h_scene, h_cam, h_cfg)
+    h_init = perturbed(h_scene, torch.Generator().manual_seed(1))
+    t_host = time.perf_counter()
+    loss_h, _, grads_h = loss_and_grads(h_init, h_cam, h_ref.image, h_cfg, tcfg.lambda_dssim)
+    host_s = time.perf_counter() - t_host
+    loss_d, _, grads_d = loss_and_grads(h_init.to(dev), h_cam, h_ref.image.to(dev), h_cfg,
+                                        tcfg.lambda_dssim)
+    loss_rel = abs(float(loss_d) - float(loss_h)) / abs(float(loss_h))
+    grad_rel = {k: float((grads_d[k].cpu() - g).abs().max() / g.abs().max())
+                for k, g in grads_h.items()}
+    h_overflow = h_ref.stats.as_dict()["overflow"]
+    emit({"phase": "train", "check": "train_grad_vs_host", "gaussians": HOST_GAUSSIANS,
+          "width": h_w, "height": h_h, "tile_capacity": HOST_TILE_CAPACITY,
+          "overflow": h_overflow, "loss_host": float(loss_h), "loss_device": float(loss_d),
+          "loss_rel_diff": loss_rel, "grad_max_abs_over_max": grad_rel,
+          "loss_rtol": LOSS_RTOL, "grad_tol": GRAD_TOL, "host_s": host_s,
+          "check_s": time.perf_counter() - t_check})
+    check(h_overflow == 0, f"train_grad_vs_host: overflow {h_overflow}")
+    check(loss_rel <= LOSS_RTOL and all(v <= GRAD_TOL for v in grad_rel.values()),
+          f"train_grad_vs_host: loss {loss_rel}, gradients {grad_rel}")
+
+
 def main() -> int:
     import torch
 
@@ -261,6 +432,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     from repro_torch.core import GridSpec, RenderConfig, make_camera, render, scene_like_paper
     from repro_torch.core.gaussians import random_scene
     from repro_torch.core.bitmask import GroupBitmasks, compact_tiles
+    from repro_torch.core.cost_model import GSTG_ASIC, estimate
     from repro_torch.core.pipeline import render_frontend
     from repro_torch.core.stages import get_backend
     from repro_torch.kernels import ops
@@ -808,6 +980,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     check(not mismatched, f"parity: counters differ {mismatched}")
     check(err <= IMAGE_TOL, f"parity: image max abs {err} > {IMAGE_TOL}")
     check(max(rel.values()) <= COUNTER_RTOL, f"parity: raster counters differ {rel}")
+    main_image = img
     del ref, out, img, front, gtable, scene
 
     # -- 5. losslessness on the card -------------------------------------------
@@ -843,7 +1016,25 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     check(s_ours["tile_entries"] == s_base["tile_entries"], "lossless: tile lists differ")
     check(tile_launches["raster_tile"] > 0, "lossless: raster_tile was not launched")
 
-    # -- 6. every ported kernel --------------------------------------------------
+    # The cost model on both frames' counters (core/cost_model.py).
+    costs = {"gstg": estimate(ours.stats, GSTG_ASIC, mode="gstg").as_dict(),
+             "tile_baseline": estimate(base.stats, GSTG_ASIC, mode="tile_baseline").as_dict()}
+    emit({"phase": "cost_model", "hardware": GSTG_ASIC.name,
+          "note": "the model's estimates for the paper's ASIC from this run's counters, "
+                  "not times measured on this card", **costs})
+    check(all(math.isfinite(v) and v >= 0 for c in costs.values() for v in c.values())
+          and all(c["total_s"] > 0 and c["energy_j"] > 0 for c in costs.values()),
+          f"cost_model: an estimate is not finite, or a total not positive: {costs}")
+    check(costs["gstg"]["total_s"] < costs["tile_baseline"]["total_s"],
+          "cost_model: gstg's modelled total is not below tile_baseline's")
+    del ours, base, scene_l
+
+    # -- 6. scene training at the main path's size, outside inference mode ----
+    with torch.inference_mode(False):
+        train_phase(dev, on_card, check, cam, main_image.clone(), n_main, width, height)
+    del main_image
+
+    # -- 7. every ported kernel --------------------------------------------------
     replaces = {
         "bitmask_gen": ("src/repro/kernels/bitmask_gen.py:74", "gstg"),
         "raster_group_fused": ("src/repro/kernels/raster_tile.py:229", "gstg"),

@@ -20,6 +20,11 @@ Every mode returns the image plus RenderStats counters (int64 tensors).
 render. The scene-sharded frontend (``scene_shards > 1``) and the
 timed-stage mode (``timing=True``) of the JAX package are not ported yet
 and raise.
+
+On the ``reference`` backend ``render`` is differentiable in the scene
+(core/train.py): only projection, the feature gathers and the blend record
+a graph; identify, bin, bitmask and compact give integers and run under
+``no_grad``.
 """
 from __future__ import annotations
 
@@ -40,6 +45,9 @@ from repro_torch.utils import wide_count_sum
 from repro_torch.utils.misc import not_ported
 
 MODES = ("gstg", "tile_baseline", "group_baseline")
+# The JAX package's sharded feature-gather strategies. With one shard every
+# strategy is the flat gather of ``proj_take``, so all render the same image.
+FEATURE_GATHER_STRATEGIES = ("index", "psum", "flat")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +64,7 @@ class RenderConfig:
     early_exit: bool = True
     backend: str = "reference"         # stage implementation: reference | cuda
     scene_shards: int = 1              # D: gaussian-axis shards (only 1 ported)
-    feature_gather: str = "auto"       # sharded feature gathers (not ported)
+    feature_gather: str = "auto"       # sharded feature gathers: auto | index | psum | flat
     timing: bool = False               # timed-stage mode (not ported)
 
 
@@ -121,8 +129,9 @@ def _grid(cam, cfg: RenderConfig) -> GridSpec:
 
 
 def check_config(cfg: RenderConfig) -> None:
-    """Raise for a mode the port does not know, a feature it has not ported
-    yet, or a gstg grid whose member tiles outgrow the 32-bit tile mask."""
+    """Raise for a mode or feature-gather strategy the port does not know, a
+    feature it has not ported yet, or a gstg grid whose member tiles outgrow
+    the 32-bit tile mask."""
     if cfg.scene_shards != 1:
         raise NotImplementedError(
             "scene_shards != 1 is not ported yet (ROADMAP queue 1, item 8: "
@@ -135,6 +144,11 @@ def check_config(cfg: RenderConfig) -> None:
         )
     if cfg.mode not in MODES:
         raise ValueError(f"unknown mode {cfg.mode!r}")
+    if cfg.feature_gather != "auto" and cfg.feature_gather not in FEATURE_GATHER_STRATEGIES:
+        raise ValueError(
+            f"unknown feature_gather {cfg.feature_gather!r}; expected "
+            f"'auto' or one of {FEATURE_GATHER_STRATEGIES}"
+        )
     tpg = (cfg.group // cfg.tile) ** 2
     if cfg.mode == "gstg" and tpg > 32:
         # The JAX package renders this case wrong (it drops member tiles 32
@@ -195,8 +209,12 @@ def _run_frontend(backend: Backend, scene, cam, cfg: RenderConfig) -> FrontendRe
     grid = _grid(cam, cfg)
     level, method, num_bins, capacity = _frontend_spec(cfg, grid)
     proj = backend.project(scene, cam)
-    pairs = backend.identify(proj, grid, level, method)
-    table = backend.bin(pairs, num_bins, capacity)
+    # Identify and bin return integers and masks, so no gradient flows
+    # through them; without a graph they keep no residuals of their float
+    # inputs (36.9 M candidate pairs at the paper's frame).
+    with torch.no_grad():
+        pairs = backend.identify(proj, grid, level, method)
+        table = backend.bin(pairs, num_bins, capacity)
     return FrontendResult(
         proj=proj,
         table=table,
@@ -216,10 +234,12 @@ def _run_backend(backend: Backend, front: FrontendResult, cam, cfg: RenderConfig
     zero = torch.zeros((), dtype=torch.int64, device=table.gauss_idx.device)
 
     if cfg.mode == "gstg":
-        # 4) BGM: tile-granularity tests on the group entries.
-        masks = backend.bitmasks(proj, table, grid, cfg.boundary_tile, chunk=cfg.chunk)
-        # 5) RM FIFO: materialized by the reference, virtual for the fused RM.
-        compacted = backend.compact(table, masks, grid, cfg.tile_capacity)
+        # 4) BGM: tile-granularity tests on the group entries. 5) RM FIFO:
+        # materialized by the reference, virtual for the fused RM. Both give
+        # integers, so they record no graph.
+        with torch.no_grad():
+            masks = backend.bitmasks(proj, table, grid, cfg.boundary_tile, chunk=cfg.chunk)
+            compacted = backend.compact(table, masks, grid, cfg.tile_capacity)
         # 6) Small-tile rasterization.
         rast = backend.rasterize_groups(
             proj, table, masks, compacted, grid,
@@ -453,3 +473,4 @@ def render_batch(
 _ITEM_SHIMS = "6: the JAX package's deprecated free functions"
 render_jit = not_ported("render_jit", _ITEM_SHIMS)
 render_image = not_ported("render_image", _ITEM_SHIMS)
+frontend_stats = not_ported("frontend_stats", "11: streams, autotune and residency")

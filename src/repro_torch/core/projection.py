@@ -67,8 +67,18 @@ def projected_bytes_per_gaussian() -> int:
 def proj_take(proj: Projected, name: str, idx: torch.Tensor) -> torch.Tensor:
     """Gather field ``name`` at gaussian indices ``idx`` (any shape). The
     port keeps projected features flat; the per-shard layout of the JAX
-    package (``ShardedProjected``) is not ported yet."""
-    return getattr(proj, name)[idx.long()]
+    package (``ShardedProjected``) is not ported yet.
+
+    A field that requires grad is gathered by ``index_select``, which gives
+    the same values and whose backward is an index_add, parallel over the
+    entries. The backward of ``field[idx]`` sorts the indices and walks each
+    run of equal ones serially, and every padding entry of a bin table holds
+    index 0: a third of the paper frame's tile table."""
+    field = getattr(proj, name)
+    if field.requires_grad:
+        flat = field.index_select(0, idx.reshape(-1).long())
+        return flat.reshape(*idx.shape, *field.shape[1:])
+    return field[idx.long()]
 
 
 def proj_valid_count(proj: Projected) -> torch.Tensor:

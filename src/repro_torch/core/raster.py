@@ -15,6 +15,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.grouping import BinTable, GridSpec
 from repro_torch.core.projection import QMAX_3SIGMA, Projected, proj_take
@@ -72,6 +73,28 @@ def alpha_at(pix, mean2d, conic, opacity):
     return torch.where((q > QMAX_3SIGMA) | (a < ALPHA_MIN), 0.0, a)
 
 
+def blend_chunk(pix, m, cn, cl, op, t_run, c_run, early_exit: bool):
+    """One chunk of every tile, front to back: alpha, the exclusive cumprod
+    of 1 - alpha, the gated blend. Returns the new carries (t_run, c_run)
+    and the chunk's per-tile alpha and blend counts; it writes nothing in
+    place, so the backward may run it again."""
+    alpha = alpha_at(
+        pix[:, :, None, :], m[:, None, :, :], cn[:, None, :, :], op[:, None, :]
+    )  # (num_tiles, P, chunk)
+    cp = torch.cumprod(1.0 - alpha, dim=2)
+    excl = torch.cat([torch.ones_like(cp[:, :, :1]), cp[:, :, :-1]], dim=2)
+    t_before = excl * t_run[:, :, None]
+    w = alpha * t_before
+    if early_exit:
+        live = t_before > T_EPS
+        w = torch.where(live, w, 0.0)
+    else:
+        live = torch.ones_like(w, dtype=torch.bool)
+    a_n = torch.sum(live & (op > 0)[:, None, :], dim=(1, 2))
+    b_n = torch.sum(w > 0, dim=(1, 2))
+    return t_run * cp[:, :, -1], c_run + w @ cl, a_n, b_n
+
+
 def rasterize(
     proj: Projected,
     table: BinTable,
@@ -101,6 +124,11 @@ def rasterize(
     c_run = torch.zeros((num_tiles, P, 3), dtype=torch.float32, device=dev)
     a_ops = torch.zeros((num_tiles,), dtype=torch.int64, device=dev)
     b_ops = torch.zeros((num_tiles,), dtype=torch.int64, device=dev)
+    # Under autograd each chunk would keep a dozen (tiles, P, chunk) tensors
+    # for the backward, 220 GB at the paper's frame; recomputing the chunk
+    # in the backward keeps only the carries.
+    recompute = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (mean2d, conic, rgb, opac))
     for c0 in range(0, K, chunk):
         sl = slice(c0, c0 + chunk)
         m, cn, cl, op = mean2d[:, sl], conic[:, sl], rgb[:, sl], opac[:, sl]
@@ -111,22 +139,14 @@ def rasterize(
             cn = torch.nn.functional.pad(cn, (0, 0, 0, pad))
             cl = torch.nn.functional.pad(cl, (0, 0, 0, pad))
             op = torch.nn.functional.pad(op, (0, pad))
-        alpha = alpha_at(
-            pix[:, :, None, :], m[:, None, :, :], cn[:, None, :, :], op[:, None, :]
-        )  # (num_tiles, P, chunk)
-        cp = torch.cumprod(1.0 - alpha, dim=2)
-        excl = torch.cat([torch.ones_like(cp[:, :, :1]), cp[:, :, :-1]], dim=2)
-        t_before = excl * t_run[:, :, None]
-        w = alpha * t_before
-        if early_exit:
-            live = t_before > T_EPS
-            w = torch.where(live, w, 0.0)
+        args = (pix, m, cn, cl, op, t_run, c_run, early_exit)
+        if recompute:
+            t_run, c_run, a_n, b_n = torch.utils.checkpoint.checkpoint(
+                blend_chunk, *args, use_reentrant=False, preserve_rng_state=False)
         else:
-            live = torch.ones_like(w, dtype=torch.bool)
-        c_run = c_run + w @ cl
-        t_run = t_run * cp[:, :, -1]
-        a_ops += torch.sum(live & (op > 0)[:, None, :], dim=(1, 2))
-        b_ops += torch.sum(w > 0, dim=(1, 2))
+            t_run, c_run, a_n, b_n = blend_chunk(*args)
+        a_ops = a_ops + a_n
+        b_ops = b_ops + b_n
 
     colors = c_run + t_run[:, :, None] * background[None, None, :]
     img = colors.reshape(grid.n_tiles_y, grid.n_tiles_x, T, T, 3)

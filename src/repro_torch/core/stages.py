@@ -141,10 +141,25 @@ class ReferenceBackend(Backend):
         )
 
 
+def refuse_grad(proj: Projected) -> None:
+    """Raise when autograd records and a float feature of ``proj`` requires
+    grad: the hand kernels record no graph, so a loss through them would
+    have no gradient. Raised on every device, also where the wrappers run
+    their plain versions."""
+    if torch.is_grad_enabled() and any(
+        getattr(proj, f.name).requires_grad for f in dataclasses.fields(proj)
+    ):
+        raise RuntimeError(
+            "the cuda backend's hand kernels record no gradient; "
+            "train through RenderConfig(backend='reference')"
+        )
+
+
 class CudaBackend(Backend):
     """BGM + RM as hand-written CUDA kernels, same counters as the
     reference. The fused RM never materializes per-tile tables; it honours
-    tile_capacity in registers and counts alpha/blend ops in the kernel."""
+    tile_capacity in registers and counts alpha/blend ops in the kernel.
+    Its rasterizers refuse features that require grad (``refuse_grad``)."""
 
     name = "cuda"
 
@@ -175,6 +190,7 @@ class CudaBackend(Backend):
         )
 
     def rasterize_tiles(self, proj, table, grid, *, background, chunk, early_exit):
+        refuse_grad(proj)
         feat = pack_features(
             proj, table.gauss_idx, table.entry_valid, multiple=self._pad_multiple(chunk)
         )
@@ -191,6 +207,7 @@ class CudaBackend(Backend):
 
     def rasterize_groups(self, proj, gtable, masks, compacted, grid, *,
                          background, chunk, early_exit, tile_capacity):
+        refuse_grad(proj)
         feat = pack_features(
             proj, gtable.gauss_idx, gtable.entry_valid, multiple=self._pad_multiple(chunk)
         )

@@ -170,6 +170,59 @@ def test_unported_config_raises(small_scene, change):
         engine.open(small_scene, cfg, device="cpu")
 
 
+def test_unknown_feature_gather_raises_in_both_packages(small_scene):
+    """Both packages refuse an unknown feature_gather with the same
+    ValueError, at every entry point of the port."""
+    from repro.core.pipeline import render as jax_render
+
+    jscene = random_scene(jax.random.key(7), 400, extent=3.0)
+    with pytest.raises(ValueError, match="unknown feature_gather") as want:
+        jax_render(jscene, make_camera(**SMALL_CAM), JConfig(feature_gather="bogus"))
+    cam = camera.make_camera(**SMALL_CAM)
+    for backend in ("reference", "cuda"):
+        cfg = pipeline.RenderConfig(backend=backend, feature_gather="bogus", **SMALL_CFG)
+        front = pipeline.render_frontend(
+            small_scene, cam, dataclasses.replace(cfg, feature_gather="auto"))
+        calls = (
+            lambda: pipeline.render(small_scene, cam, cfg),
+            lambda: pipeline.render_frontend(small_scene, cam, cfg),
+            lambda: pipeline.render_backend(front, cam, cfg),
+            lambda: pipeline.render_batch(small_scene, [cam], cfg),
+            lambda: engine.open(small_scene, cfg, device="cpu"),
+        )
+        for call in calls:
+            with pytest.raises(ValueError) as got:
+                call()
+            assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_every_feature_gather_renders_alike(small_scene, backend):
+    """With one shard every strategy is the flat gather: auto, index, psum
+    and flat render the same image and counters."""
+    cam = camera.make_camera(**SMALL_CAM)
+    outs = [pipeline.render(small_scene, cam, pipeline.RenderConfig(
+        backend=backend, feature_gather=fg, **SMALL_CFG)) for fg in ("auto", "index", "psum", "flat")]
+    for out in outs[1:]:
+        assert torch.equal(out.image, outs[0].image)
+        assert out.stats.as_dict() == outs[0].stats.as_dict()
+
+
+def test_core_exports_every_reference_name():
+    """Every name of repro.core.__all__ imports from repro_torch.core; the
+    ones not ported yet raise, naming their ROADMAP item."""
+    import repro.core
+    import repro_torch.core
+
+    missing = [name for name in repro.core.__all__ if name not in repro_torch.core.__all__]
+    assert not missing, missing
+    for name in repro.core.__all__:
+        assert getattr(repro_torch.core, name) is not None
+    for name, item in (("frontend_stats", 11), ("render_image", 6), ("render_jit", 6)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
+            getattr(repro_torch.core, name)()
+
+
 def test_entry_points_default_to_cuda(small_scene):
     """Without a device the entry points go to CUDA, and raise when it is
     missing rather than falling back to the CPU."""
@@ -195,6 +248,8 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.kernels.bitmask_gen, repro_torch.kernels.raster_tile\n"
         "import repro_torch.kernels.bitonic_sort, repro_torch.obs, repro_torch.serving\n"
         "import repro_torch.serving.sharded, repro_torch.utils\n"
+        "import repro_torch.optim, repro_torch.core.train, repro_torch.core.metrics\n"
+        "import repro_torch.core.cost_model, repro_torch.examples.train_gaussians\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
     )
