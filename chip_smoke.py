@@ -67,6 +67,20 @@ line each:
                 positive, gstg's total below tile_baseline's. Its outputs
                 are the model's estimates for the paper's ASIC, not times
                 of this card.
+     sharded  — the scene cut into D logical shards of the gaussian axis on
+                the card: engine.open(scene, cfg, scene_shards=D).render(cam)
+                at D = 2 and 7 (7 leaves 4 padding rows), image and every
+                counter bitwise equal to the main path's D = 1 render; at
+                D = 2 under the index, psum and flat feature gathers; at
+                D = 7 also a shard_scene_host layout moved to the card;
+                render_batch of the batch phase's four cameras at D = 2
+                against its D = 1 lanes; the lossless frame at D = 2, gstg
+                bitwise equal to tile_baseline at D = 2 and to gstg at
+                D = 1. Launch counts zeroed just before the D = 2 and D = 7
+                frames (the BGM and the fused RM once each) and the D = 2
+                tile_baseline frame (the tile RM once), read just after;
+                frame ms at D = 1, 2 and 7 (host clock to synchronize,
+                median of 10) and each D's peak memory.
   6. train    — scene training (core/train.py) on the main path's scene,
                 camera and config, backend reference, outside inference
                 mode: the main path's image is the target, the scene is
@@ -84,9 +98,10 @@ line each:
                 and on the host with the same code: loss rtol 1e-4, each
                 gradient max-abs within 1e-4 of its largest magnitude (the
                 CPU tests' bounds against the JAX package).
-  7. kernels  — every ported kernel: launches, error, times, bound,
-                library time (torch.sort + gather for the bitonic sort).
-                The train phase launches none of them.
+  7. kernels  — every ported kernel: launches on its path and on the
+                sharded path, error, times, bound, library time (torch.sort
+                + gather for the bitonic sort). The train phase launches
+                none of them.
 
 The last line is {"ok": true, "device": {...}}; any failed check exits
 non-zero before it. Without CUDA, or without the repository beside this
@@ -151,6 +166,7 @@ WIDE_CHUNK, WIDE_GAUSSIANS, WIDE_SIZE = 2048, 20_000, (256, 192)
 # train: AdamW steps at the main path's size; train_grad_vs_host: a frame the
 # host differentiates in seconds, and the CPU tests' bounds against JAX.
 TRAIN_STEPS = 4
+SHARDS = (2, 7)           # sharded: 1,026,000 = 7 x 146,572 - 4, so D = 7 pads
 HOST_GAUSSIANS, HOST_SIZE, HOST_TILE_CAPACITY = 20_000, (256, 192), 1024
 LOSS_RTOL = 1e-4
 GRAD_TOL = 1e-4           # max-abs difference over the field's largest magnitude
@@ -395,6 +411,120 @@ def train_phase(dev, on_card, check, cam, target, n_main, width, height) -> None
     check(h_overflow == 0, f"train_grad_vs_host: overflow {h_overflow}")
     check(loss_rel <= LOSS_RTOL and all(v <= GRAD_TOL for v in grad_rel.values()),
           f"train_grad_vs_host: loss {loss_rel}, gradients {grad_rel}")
+
+
+def sharded_phase(dev, on_card, check, cfg, scene, cam, cams, main, batch_one, scene_l,
+                  cam_l, lossless_one) -> dict:
+    """The scene in D logical shards on one card, bitwise against the D = 1
+    renders of this run: ``main`` (the main path's frame), ``batch_one``
+    (the batch phase's render_batch) and ``lossless_one`` (the lossless
+    gstg frame). Returns the sharded path's launches of each kernel."""
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.core import render
+    from repro_torch.kernels import build
+    from repro_torch.sharding import shard_scene_host
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def bitwise(out, want) -> bool:
+        """Image and every counter equal (per lane for a batch)."""
+        return bool(torch.equal(out.image, want.image)) and all(
+            torch.equal(getattr(out.stats, f.name), getattr(want.stats, f.name))
+            for f in dataclasses.fields(out.stats))
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+
+    def frame_ms(handle):
+        """Median of REPS frames after a warm-up, host clock to sync."""
+        handle.render(cam)
+        sync()
+        times = []
+        for _ in range(REPS):
+            t = time.perf_counter()
+            handle.render(cam)
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times), times
+
+    t_phase = time.perf_counter()
+    same, times, frame_each, peaks, launches, gathers = {}, {}, {}, {}, {}, {}
+    for shards in (1, *SHARDS):
+        reset_peak()
+        with engine.open(scene, cfg, device=dev, scene_shards=shards) as h:
+            build.reset_launches()
+            out = h.render(cam)
+            sync()
+            launches[shards] = dict(build.LAUNCHES)
+            same[f"D{shards}"] = bitwise(out, main)
+            del out
+            times[shards], frame_each[shards] = frame_ms(h)
+            gathers[shards] = h.stats()["feature_gather"]
+        peaks[shards] = peak_gb()
+    for gather in ("index", "psum", "flat"):
+        with engine.open(scene, dataclasses.replace(cfg, feature_gather=gather), device=dev,
+                         scene_shards=2) as h:
+            same[f"D2_{gather}"] = bitwise(h.render(cam), main)
+    hosted = shard_scene_host(scene, SHARDS[-1])
+    padding = hosted.padded_size - hosted.num_real
+    with engine.open(hosted.to(dev), cfg, device=dev) as h:
+        same[f"D{SHARDS[-1]}_host_layout"] = bitwise(h.render(cam), main)
+    del hosted
+    with engine.open(scene, cfg, device=dev, scene_shards=2) as h:
+        build.reset_launches()
+        batch = h.render_batch(cams, pad_to=len(cams))
+        sync()
+        batch_launches = dict(build.LAUNCHES)
+        same["D2_render_batch"] = bitwise(batch, batch_one)
+    del batch
+    two = dataclasses.replace(cfg, scene_shards=2)
+    gstg_two = render(scene_l, cam_l, two)
+    build.reset_launches()
+    tile_two = render(scene_l, cam_l, dataclasses.replace(two, mode="tile_baseline"))
+    sync()
+    tile_launches = dict(build.LAUNCHES)
+    same["lossless_D2_gstg_vs_D1"] = bitwise(gstg_two, lossless_one)
+    same["lossless_D2_gstg_vs_tile_baseline"] = bool(torch.equal(gstg_two.image, tile_two.image))
+    lossless_stats = tile_two.stats.as_dict()
+    del gstg_two, tile_two
+    path = {s: {k: launches[s][k] for k in ("bitmask_gen", "raster_group_fused")}
+            for s in SHARDS}
+    emit({"phase": "sharded", "gaussians": scene.num_gaussians, "shards": list(SHARDS),
+          "padding_rows": {str(SHARDS[-1]): padding}, "bitwise_vs_D1": same,
+          "feature_gather": {str(k): v for k, v in gathers.items()},
+          "frame_ms_median": {str(k): v for k, v in times.items()},
+          "frame_ms": {str(k): v for k, v in frame_each.items()},
+          "peak_mem_gb": {str(k): v for k, v in peaks.items()},
+          "launches_per_frame": {str(k): v for k, v in path.items()},
+          "batch_launches": batch_launches, "lossless_tile_baseline_launches": tile_launches,
+          "lossless_tile_baseline_stats": lossless_stats,
+          "phase_s": time.perf_counter() - t_phase})
+    for what, ok in same.items():
+        check(ok, f"sharded: {what} is not bitwise equal")
+    check(padding == -scene.num_gaussians % SHARDS[-1] > 0,
+          f"sharded: D = {SHARDS[-1]} pads {padding} rows")
+    check(lossless_stats["overflow"] == 0 and lossless_stats["span_overflow"] == 0,
+          f"sharded: a lossless list was cut: {lossless_stats}")
+    for s, counts in path.items():
+        check(counts == {"bitmask_gen": 1, "raster_group_fused": 1},
+              f"sharded: D = {s} frame launched {counts}")
+    check(all(batch_launches[k] == len(cams) for k in ("bitmask_gen", "raster_group_fused")),
+          f"sharded: render_batch launched {batch_launches}")
+    check(tile_launches["raster_tile"] == 1, f"sharded: tile_baseline launched {tile_launches}")
+    check(gathers[1] == "flat" and all(gathers[s] == "index" for s in SHARDS),
+          f"sharded: committed feature gathers {gathers}")
+    return {"bitmask_gen": launches[2]["bitmask_gen"],
+            "raster_group_fused": launches[2]["raster_group_fused"],
+            "raster_tile": tile_launches["raster_tile"],
+            "bitonic_sort": launches[2]["bitonic_sort"]}
 
 
 def main() -> int:
@@ -964,7 +1094,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     for k in ("bitmask_gen", "raster_group_fused"):
         check(batch_launches[k] == len(cams) and submit_launches[k] == len(cams),
               f"batch: kernel {k} launched {batch_launches[k]}/{submit_launches[k]} times")
-    del singles, batch, results
+    del singles, results
 
     # -- 4. cuda backend against the reference backend, on the card ----------
     ref = render(scene, cam, RenderConfig(backend="reference", **CFG_KW))
@@ -981,7 +1111,8 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     check(err <= IMAGE_TOL, f"parity: image max abs {err} > {IMAGE_TOL}")
     check(max(rel.values()) <= COUNTER_RTOL, f"parity: raster counters differ {rel}")
     main_image = img
-    del ref, out, img, front, gtable, scene
+    main_one = out                       # the D = 1 frame the sharded phase matches
+    del ref, out, img, front, gtable
 
     # -- 5. losslessness on the card -------------------------------------------
     # gstg == tile_baseline holds when no list is cut. At the main camera a
@@ -1027,7 +1158,12 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
           f"cost_model: an estimate is not finite, or a total not positive: {costs}")
     check(costs["gstg"]["total_s"] < costs["tile_baseline"]["total_s"],
           "cost_model: gstg's modelled total is not below tile_baseline's")
-    del ours, base, scene_l
+    del base
+
+    # -- sharded: logical shards of the gaussian axis, against D = 1 ---------
+    sharded_launches = sharded_phase(dev, on_card, check, cfg, scene, cam, cams, main_one,
+                                     batch, scene_l, cam_l, ours)
+    del ours, scene_l, scene, batch, main_one
 
     # -- 6. scene training at the main path's size, outside inference mode ----
     with torch.inference_mode(False):
@@ -1055,6 +1191,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
         rows.append({
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name][0], "path": path, "launches": launches,
+            "launches_sharded": sharded_launches[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": k.get("library_ms"),

@@ -85,9 +85,31 @@ def sh0_to_rgb(sh0: torch.Tensor) -> torch.Tensor:
     return sh0 * SH_C0 + 0.5
 
 
+def small_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for a (..., m, k) and b (..., k, p) with a small k: k
+    broadcast products added in the order 0, 1, .., k - 1. Each output
+    element is then the same sum whatever the leading sizes are, on every
+    device. A library matmul picks its kernel, and with it the order of its
+    sum, by the shapes: a shard's rows could round unlike the same rows of
+    the whole scene (``core/pipeline.py``, scene sharding)."""
+    out = a[..., :, 0:1] * b[..., 0:1, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., :, k:k + 1] * b[..., k:k + 1, :]
+    return out
+
+
+def row_norm(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis (kept, size 1), its squares added
+    in order, for the reason :func:`small_matmul` gives."""
+    sq = v[..., 0:1] * v[..., 0:1]
+    for i in range(1, v.shape[-1]):
+        sq = sq + v[..., i:i + 1] * v[..., i:i + 1]
+    return torch.sqrt(sq)
+
+
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     """(..., 4) quaternion (w, x, y, z) -> (..., 3, 3) rotation matrix."""
-    q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-12)
+    q = q / (row_norm(q) + 1e-12)
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     r00 = 1 - 2 * (y * y + z * z)
     r01 = 2 * (x * y - w * z)
@@ -111,7 +133,7 @@ def covariance3d(log_scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
     R = quat_to_rotmat(quats)
     S = torch.exp(log_scales)
     M = R * S[..., None, :]  # R @ diag(S)
-    return M @ M.transpose(-1, -2)
+    return small_matmul(M, M.transpose(-1, -2))
 
 
 def _uniform(gen, shape, lo, hi):

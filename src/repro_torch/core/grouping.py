@@ -252,6 +252,52 @@ def sort_op_count(lengths: torch.Tensor) -> torch.Tensor:
     return torch.sum(lengths.to(torch.int64) * logL.to(torch.int64))
 
 
+def merge_bin_tables(tables: BinTable, depth: torch.Tensor) -> BinTable:
+    """Merge D per-shard bin tables into the global depth-ordered table.
+
+    ``tables`` is a shard-stacked BinTable (gauss_idx/entry_valid
+    ``(D, B, K)``, lengths ``(D, B)``) whose ``gauss_idx`` entries are
+    already global gaussian indices; ``depth`` is the per-entry sort key
+    ``(D, B, K)``.
+
+    Bitwise invariant (DESIGN.md §10): when the shards partition the
+    gaussian axis contiguously in global order (``sharding/scene.py``) and
+    every shard bins at the merged capacity K, the result equals
+    :func:`bin_pairs` on the unsharded pair set, field for field:
+
+      * each shard's per-bin segment is a subsequence of the global segment
+        (its stable sort keeps the global pair order);
+      * concatenating shard-major and re-sorting by depth with a stable sort
+        breaks depth ties by (shard, within-shard position), the global
+        insertion order: the 3D-GS tie-break losslessness rests on;
+      * under capacity overflow the first K merged entries are the global
+        top K: an entry of the global top K has fewer than K predecessors in
+        its own shard, so no shard's clamp at K drops it.
+
+    Invalid slots carry key +inf and sort last; merged lengths are the
+    exact pre-clamp totals, so overflow matches the replicated path.
+    """
+    D, B, K = tables.gauss_idx.shape
+    key = torch.where(tables.entry_valid, depth, float("inf"))
+
+    def cat(a):  # shard-major: bin b's row is shard 0's K slots, then shard 1's, ...
+        return a.transpose(0, 1).reshape(B, D * K)
+
+    order = torch.sort(cat(key), dim=1, stable=True).indices[:, :K]
+    merged_idx = torch.gather(cat(tables.gauss_idx), 1, order)
+
+    lengths = torch.sum(tables.lengths, dim=0, dtype=torch.int32)  # exact pre-clamp totals
+    k = torch.arange(K, dtype=torch.int32, device=lengths.device)
+    entry_valid = k[None, :] < torch.clamp(lengths, max=K)[:, None]
+    return BinTable(
+        gauss_idx=torch.where(entry_valid, merged_idx, torch.zeros((), dtype=merged_idx.dtype,
+                                                                   device=lengths.device)),
+        entry_valid=entry_valid,
+        lengths=lengths,
+        overflow=wide_count_sum(torch.clamp(lengths - K, min=0)),
+    )
+
+
 def tile_rect_in_group(grid: GridSpec, group_ids: torch.Tensor, tile_slot: torch.Tensor):
     """Pixel rect of member tile ``tile_slot`` (0..gf^2-1) of each group."""
     gf = grid.gf

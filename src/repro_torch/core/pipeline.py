@@ -17,9 +17,14 @@ hand-written BGM and RM kernels). Three modes share the substrate:
 Every mode returns the image plus RenderStats counters (int64 tensors).
 ``render_batch`` renders B cameras of one geometry lane by lane through
 ``render`` and stacks them, so every lane is bitwise equal to a single
-render. The scene-sharded frontend (``scene_shards > 1``) and the
-timed-stage mode (``timing=True``) of the JAX package are not ported yet
-and raise.
+render.
+
+With ``scene_shards = D > 1`` (or a ``ShardedScene``) the frontend runs per
+shard of the gaussian axis and merges the D bin tables with a stable sort
+(``core/grouping.py::merge_bin_tables``); image and every counter are
+bitwise those of D = 1 (DESIGN.md §10). On one device the shard axis is
+logical. The timed-stage mode (``timing=True``) of the JAX package is not
+ported yet and raises.
 
 On the ``reference`` backend ``render`` is differentiable in the scene
 (core/train.py): only projection, the feature gathers and the blend record
@@ -36,18 +41,20 @@ import numpy as np
 import torch
 
 from repro_torch.core.camera import Camera
-from repro_torch.core.gaussians import GaussianScene
-from repro_torch.core.grouping import GridSpec, sort_op_count
-from repro_torch.core.projection import Projected, proj_valid_count
+from repro_torch.core.grouping import BinTable, GridSpec, sort_op_count
+from repro_torch.core.projection import (
+    FEATURE_GATHER_STRATEGIES,
+    Projected,
+    ShardedProjected,
+    proj_valid_count,
+)
 from repro_torch.core.stages import Backend, get_backend
 from repro_torch.obs import get_registry
+from repro_torch.sharding.scene import SceneLike, ShardedScene, shard_scene
 from repro_torch.utils import wide_count_sum
 from repro_torch.utils.misc import not_ported
 
 MODES = ("gstg", "tile_baseline", "group_baseline")
-# The JAX package's sharded feature-gather strategies. With one shard every
-# strategy is the flat gather of ``proj_take``, so all render the same image.
-FEATURE_GATHER_STRATEGIES = ("index", "psum", "flat")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,8 +70,8 @@ class RenderConfig:
     chunk: int = 32                    # raster gaussian chunk
     early_exit: bool = True
     backend: str = "reference"         # stage implementation: reference | cuda
-    scene_shards: int = 1              # D: gaussian-axis shards (only 1 ported)
-    feature_gather: str = "auto"       # sharded feature gathers: auto | index | psum | flat
+    scene_shards: int = 1              # D: gaussian-axis shards (DESIGN.md §10)
+    feature_gather: str = "auto"       # sharded feature gathers: auto (-> index) | index | psum | flat
     timing: bool = False               # timed-stage mode (not ported)
 
 
@@ -111,10 +118,10 @@ class RenderResult:
 
 @dataclasses.dataclass
 class FrontendResult:
-    """What the frontend (project -> identify -> bin) hands the backend
-    (bitmask -> compact -> rasterize)."""
+    """What the frontend (project -> identify -> bin, and merge when
+    sharded) hands the backend (bitmask -> compact -> rasterize)."""
 
-    proj: Projected
+    proj: Union[Projected, ShardedProjected]
     table: object                     # BinTable (group- or tile-level)
     n_visible: torch.Tensor
     n_candidate_tests: torch.Tensor
@@ -130,13 +137,10 @@ def _grid(cam, cfg: RenderConfig) -> GridSpec:
 
 def check_config(cfg: RenderConfig) -> None:
     """Raise for a mode or feature-gather strategy the port does not know, a
-    feature it has not ported yet, or a gstg grid whose member tiles outgrow
-    the 32-bit tile mask."""
-    if cfg.scene_shards != 1:
-        raise NotImplementedError(
-            "scene_shards != 1 is not ported yet (ROADMAP queue 1, item 8: "
-            "sharding along the gaussian axis)"
-        )
+    shard count below 1, a feature it has not ported yet, or a gstg grid
+    whose member tiles outgrow the 32-bit tile mask."""
+    if cfg.scene_shards < 1:
+        raise ValueError(f"scene_shards must be >= 1, got {cfg.scene_shards}")
     if cfg.timing:
         raise NotImplementedError(
             "timing=True is not ported yet (ROADMAP queue 1, item 9: "
@@ -159,22 +163,56 @@ def check_config(cfg: RenderConfig) -> None:
         )
 
 
+def _scene_for_render(scene: SceneLike, cfg: RenderConfig) -> SceneLike:
+    """The scene in the layout ``cfg.scene_shards`` asks for: a plain scene
+    with ``scene_shards > 1`` is padded and sharded here
+    (``sharding/scene.py``); a ShardedScene is taken at any D that matches
+    the config, D = 1 included."""
+    if isinstance(scene, ShardedScene):
+        if scene.num_shards != cfg.scene_shards:
+            raise ValueError(
+                f"scene has {scene.num_shards} shards but cfg.scene_shards="
+                f"{cfg.scene_shards}; the shard count is part of the static "
+                "signature and must agree"
+            )
+        return scene
+    if cfg.scene_shards > 1:
+        return shard_scene(scene, cfg.scene_shards)
+    return scene
+
+
+def resolve_feature_gather(cfg: RenderConfig) -> str:
+    """``cfg.feature_gather`` as a concrete strategy: ``'auto'`` is
+    ``'index'``, the plain (shard, local) gather. All strategies are
+    bitwise alike (DESIGN.md §12); only memory and layout differ."""
+    if cfg.feature_gather == "auto":
+        return "index"
+    if cfg.feature_gather not in FEATURE_GATHER_STRATEGIES:
+        raise ValueError(
+            f"unknown feature_gather {cfg.feature_gather!r}; expected "
+            f"'auto' or one of {FEATURE_GATHER_STRATEGIES}"
+        )
+    return cfg.feature_gather
+
+
 def render(
-    scene: GaussianScene,
+    scene: SceneLike,
     cam: Camera,
     cfg: RenderConfig,
     background: Optional[torch.Tensor] = None,
 ) -> RenderResult:
     """Render one camera through the staged engine on ``cfg.backend``, on
-    the scene's device."""
+    the scene's device. ``scene`` is a plain GaussianScene or a ShardedScene
+    with ``cfg.scene_shards`` shards."""
     check_config(cfg)
     backend = get_backend(cfg.backend)
     front = _run_frontend(backend, scene, cam, cfg)
     return _run_backend(backend, front, cam, cfg, background)
 
 
-def render_frontend(scene: GaussianScene, cam: Camera, cfg: RenderConfig) -> FrontendResult:
-    """The frontend half of :func:`render`: project -> identify -> bin."""
+def render_frontend(scene: SceneLike, cam: Camera, cfg: RenderConfig) -> FrontendResult:
+    """The frontend half of :func:`render`: project -> identify -> bin (and
+    the cross-shard merge when sharded)."""
     check_config(cfg)
     return _run_frontend(get_backend(cfg.backend), scene, cam, cfg)
 
@@ -205,24 +243,79 @@ def _frontend_spec(cfg: RenderConfig, grid: GridSpec) -> tuple:
 
 
 def _run_frontend(backend: Backend, scene, cam, cfg: RenderConfig) -> FrontendResult:
-    """Stages 1-3 for any mode: ONE sort per bin at the mode's granularity."""
+    """Stages 1-3 for any mode: ONE sort per bin at the mode's granularity;
+    per shard, then the stable merge, when the scene is sharded."""
     grid = _grid(cam, cfg)
     level, method, num_bins, capacity = _frontend_spec(cfg, grid)
-    proj = backend.project(scene, cam)
-    # Identify and bin return integers and masks, so no gradient flows
-    # through them; without a graph they keep no residuals of their float
-    # inputs (36.9 M candidate pairs at the paper's frame).
-    with torch.no_grad():
-        pairs = backend.identify(proj, grid, level, method)
-        table = backend.bin(pairs, num_bins, capacity)
+    gather = resolve_feature_gather(cfg)
+    scene = _scene_for_render(scene, cfg)
+    if isinstance(scene, ShardedScene):
+        proj, table, counts = _sharded_frontend(
+            backend, scene, cam, grid, level, method, num_bins, capacity, gather)
+    else:
+        proj = backend.project(scene, cam)
+        # Identify and bin return integers and masks, so no gradient flows
+        # through them; without a graph they keep no residuals of their
+        # float inputs (36.9 M candidate pairs at the paper's frame).
+        with torch.no_grad():
+            pairs = backend.identify(proj, grid, level, method)
+            table = backend.bin(pairs, num_bins, capacity)
+        counts = (pairs.n_candidate_tests, pairs.n_pairs, pairs.n_span_overflow)
     return FrontendResult(
         proj=proj,
         table=table,
         n_visible=proj_valid_count(proj),
-        n_candidate_tests=pairs.n_candidate_tests,
-        n_pairs_sort=pairs.n_pairs,
-        span_overflow=pairs.n_span_overflow,
+        n_candidate_tests=counts[0],
+        n_pairs_sort=counts[1],
+        span_overflow=counts[2],
     )
+
+
+def _sharded_frontend(backend: Backend, scene: ShardedScene, cam, grid: GridSpec,
+                      level: str, method: str, num_bins: int, capacity: int, gather: str):
+    """Project, identify and bin each shard on its own, then merge the D
+    tables into the global depth-ordered table, bitwise the replicated one
+    (core/grouping.py::merge_bin_tables). The table's ``gauss_idx`` stays
+    global: shard d starts at d * Ns in the gaussian-contiguous layout.
+    Downstream gathers decompose it into (shard, local) (``proj_take``)
+    unless ``gather`` is ``'flat'``, which hands on the padded flat view.
+
+    Returns ``(proj, table, (n_candidate_tests, n_pairs, n_span_overflow))``
+    with the counters summed over shards in int64."""
+    D, Ns = scene.num_shards, scene.shard_size
+    projs, tables, depths, counts = [], [], [], []
+    for d in range(D):
+        proj = backend.project(scene.shard(d), cam)
+        with torch.no_grad():
+            pairs = backend.identify(proj, grid, level, method)
+            table = backend.bin(pairs, num_bins, capacity)
+            valid = table.entry_valid
+            # The merge keys, gathered from the shard's own rows: bitwise
+            # the flat proj.depth[global index].
+            depths.append(torch.where(valid, proj.depth[table.gauss_idx.long()], float("inf")))
+            tables.append(dataclasses.replace(
+                table, gauss_idx=torch.where(valid, table.gauss_idx + d * Ns, 0)))
+        counts.append(torch.stack([pairs.n_candidate_tests, pairs.n_pairs,
+                                   pairs.n_span_overflow]).to(torch.int64))
+        projs.append(proj)
+        del pairs     # this shard's candidates go before the next shard's are made
+    with torch.no_grad():
+        stacked = BinTable(**{
+            f.name: torch.stack([getattr(t, f.name) for t in tables])
+            for f in dataclasses.fields(BinTable)
+        })
+        table = backend.merge(stacked, torch.stack(depths))
+    shards = Projected(**{
+        f.name: torch.stack([getattr(p, f.name) for p in projs])
+        for f in dataclasses.fields(Projected)
+    })
+    if gather == "flat":
+        proj = Projected(**{
+            f.name: getattr(shards, f.name).flatten(0, 1) for f in dataclasses.fields(Projected)
+        })
+    else:
+        proj = ShardedProjected(shards=shards, gather=gather)
+    return proj, table, tuple(torch.sum(torch.stack(counts), dim=0))
 
 
 def _run_backend(backend: Backend, front: FrontendResult, cam, cfg: RenderConfig,
@@ -388,6 +481,7 @@ def batch_renderer(cfg: RenderConfig, width, height, znear, zfar):
     def fn(scene, batch: CameraBatch, background=None) -> RenderResult:
         if (batch.width, batch.height, batch.znear, batch.zfar) != (width, height, znear, zfar):
             raise ValueError("camera batch geometry differs from the renderer's signature")
+        scene = _scene_for_render(scene, cfg)    # shard once for every lane
         return _stack_results(
             [render(scene, batch.camera(i), cfg, background) for i in range(len(batch))]
         )
@@ -457,7 +551,7 @@ get_registry().register_collector("render_caches", _collect_render_caches)
 
 
 def render_batch(
-    scene: GaussianScene,
+    scene: SceneLike,
     cams: Union[CameraBatch, Sequence[Camera]],
     cfg: RenderConfig,
     background: Optional[torch.Tensor] = None,

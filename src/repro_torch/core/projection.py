@@ -12,7 +12,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.camera import Camera
-from repro_torch.core.gaussians import SH_C0, GaussianScene, covariance3d
+from repro_torch.core.gaussians import SH_C0, GaussianScene, covariance3d, row_norm, small_matmul
 
 # Low-pass filter added to the 2D covariance diagonal (anti-aliasing), exactly
 # as in the reference 3D-GS rasterizer.
@@ -64,25 +64,110 @@ def projected_bytes_per_gaussian() -> int:
     )
 
 
-def proj_take(proj: Projected, name: str, idx: torch.Tensor) -> torch.Tensor:
-    """Gather field ``name`` at gaussian indices ``idx`` (any shape). The
-    port keeps projected features flat; the per-shard layout of the JAX
-    package (``ShardedProjected``) is not ported yet.
+@dataclasses.dataclass
+class ShardedProjected:
+    """Projected features kept in the per-shard layout (DESIGN.md §12).
 
-    A field that requires grad is gathered by ``index_select``, which gives
-    the same values and whose backward is an index_add, parallel over the
-    entries. The backward of ``field[idx]`` sorts the indices and walks each
-    run of equal ones serially, and every padding entry of a bin table holds
-    index 0: a third of the paper frame's tile table."""
+    ``shards`` holds the ordinary :class:`Projected` tensors with a leading
+    ``(D, Ns)`` shard axis: the per-shard projections stacked, never
+    flattened to the padded ``(D * Ns, ...)`` view. ``gather`` selects how a
+    consumer fetches an entry's features from its owning shard:
+
+      * ``'index'`` — the plain 2-D indexed gather ``field[shard, local]``;
+      * ``'psum'``  — owner-masked per-shard gathers summed over the shard
+        axis on the raw bit patterns (exactly one shard owns each entry, so
+        the integer sum is the owner's bits): the form a multi-GPU commit
+        turns into an all-reduce. Inference only: it refuses to record a
+        gradient.
+
+    Both are bitwise the flat gather ``concat(shards)[global_idx]``:
+    ``flat[g] == shards[g // Ns, g % Ns]``.
+    """
+
+    shards: Projected        # every field with leading (D, Ns) axes
+    gather: str = "index"    # 'index' | 'psum'
+
+    @property
+    def num_shards(self) -> int:
+        return self.shards.depth.shape[0]
+
+    @property
+    def shard_size(self) -> int:
+        return self.shards.depth.shape[1]
+
+    @property
+    def valid(self) -> torch.Tensor:
+        """(D, Ns) cull mask: reductions over it equal the flat ones."""
+        return self.shards.valid
+
+
+FEATURE_GATHER_STRATEGIES = ("index", "psum", "flat")
+
+def _gather_owner_sum(x: torch.Tensor, shard: torch.Tensor, local: torch.Tensor):
+    """Owner-masked gather-and-sum over the shard axis, bit-exact.
+
+    ``x``: (D, Ns, *F), float32 or bool like every Projected field;
+    ``shard``/``local``: int64 indices of any shape. Each shard contributes
+    its own rows where it owns the entry and zero bits elsewhere; the sum
+    over shards runs on the raw bit patterns (float32 as int32, bool as
+    uint8), so the one owner's bits come back verbatim: signed zeros and
+    NaN payloads too.
+    """
+    if x.dtype == torch.bool:
+        view, restore = x.view(torch.uint8), (lambda v: v.view(torch.bool))
+    else:
+        view, restore = x.view(torch.int32), (lambda v: v.view(x.dtype))
+    zero = torch.zeros((), dtype=view.dtype, device=x.device)
+    parts = []
+    for d in range(x.shape[0]):
+        own = shard == d
+        g = view[d][torch.where(own, local, 0)]
+        parts.append(torch.where(own.reshape(own.shape + (1,) * (g.ndim - own.ndim)), g, zero))
+    # Pin the accumulator: torch.sum of an integer tensor widens to int64.
+    # Exactly one part is nonzero, so the same-width sum cannot overflow.
+    return restore(torch.sum(torch.stack(parts), dim=0, dtype=view.dtype))
+
+
+def proj_take(proj, name: str, idx: torch.Tensor) -> torch.Tensor:
+    """Gather field ``name`` of a flat :class:`Projected` or a
+    :class:`ShardedProjected` at global gaussian indices ``idx`` (any
+    shape): the one gather every consumer (the reference bitmask and raster
+    gathers, the kernels' feature packer) goes through, so the (shard,
+    local) decomposition lives in one place.
+
+    A field that requires grad is gathered by ``index_select`` (through the
+    flat view of a contiguous ``(D, Ns)`` field), which gives the same
+    values and whose backward is an index_add, parallel over the entries.
+    The backward of ``field[idx]`` sorts the indices and walks each run of
+    equal ones serially, and every padding entry of a bin table holds index
+    0: a third of the paper frame's tile table."""
+    idx = idx.long()
+    if isinstance(proj, ShardedProjected):
+        field, ns = getattr(proj.shards, name), proj.shard_size
+        if proj.gather == "psum":
+            if field.requires_grad and torch.is_grad_enabled():
+                raise RuntimeError(
+                    "the psum feature gather is inference-only; train with "
+                    "feature_gather 'index' or 'flat'"
+                )
+            return _gather_owner_sum(field, idx // ns, idx % ns)
+        if field.requires_grad:
+            return _index_select(field.flatten(0, 1), idx)
+        return field[idx // ns, idx % ns]
     field = getattr(proj, name)
     if field.requires_grad:
-        flat = field.index_select(0, idx.reshape(-1).long())
-        return flat.reshape(*idx.shape, *field.shape[1:])
-    return field[idx.long()]
+        return _index_select(field, idx)
+    return field[idx]
 
 
-def proj_valid_count(proj: Projected) -> torch.Tensor:
-    """Visible-gaussian count (exact integer reduction)."""
+def _index_select(field: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    flat = field.index_select(0, idx.reshape(-1))
+    return flat.reshape(*idx.shape, *field.shape[1:])
+
+
+def proj_valid_count(proj) -> torch.Tensor:
+    """Visible-gaussian count for flat or sharded features (an exact integer
+    reduction, so the shard-summed total equals the flat one)."""
     return torch.sum(proj.valid.to(torch.int64))
 
 
@@ -120,12 +205,25 @@ def eigen2x2(a, b, c, det):
     return lam1, lam2, torch.stack([ex, ey], dim=-1)
 
 
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)), from exp of -|x| (nothing overflows, forward or
+    backward). On the CPU ``torch.sigmoid`` runs a vectorised body and a
+    scalar tail that round differently, so one logit gets different bits at
+    different positions of a tensor; ``torch.exp`` does not."""
+    e = torch.exp(torch.where(x >= 0, -x, x))
+    return torch.where(x >= 0, 1.0 / (1.0 + e), e / (1.0 + e))
+
+
 def project(scene: GaussianScene, cam: Camera) -> Projected:
     """The preprocessing stage: features + culling (paper Fig 1)."""
     dev = scene.means3d.device
     R = torch.as_tensor(cam.R, dtype=torch.float32, device=dev)
     t = torch.as_tensor(cam.t, dtype=torch.float32, device=dev)
-    p_cam = scene.means3d @ R.T + t[None, :]  # (N, 3)
+    # The products below are written out (small_matmul, row_norm) and the
+    # sigmoid is taken through exp, so that every row's features are the
+    # same bits whatever the number of rows: a scene shard projects exactly
+    # as the same rows of the whole scene.
+    p_cam = small_matmul(scene.means3d, R.T) + t[None, :]  # (N, 3)
     x, y, z = p_cam[:, 0], p_cam[:, 1], p_cam[:, 2]
     z_safe = torch.clamp(z, min=1e-6)
 
@@ -135,7 +233,7 @@ def project(scene: GaussianScene, cam: Camera) -> Projected:
 
     # --- 2D covariance via the projective Jacobian (EWA splatting) ---
     cov3d = covariance3d(scene.log_scales, scene.quats)      # (N, 3, 3)
-    cov3d_cam = torch.einsum("ij,njk,lk->nil", R, cov3d, R)   # R Σ R^T
+    cov3d_cam = small_matmul(small_matmul(R, cov3d), R.T)    # R Σ R^T
     inv_z = 1.0 / z_safe
     inv_z2 = inv_z * inv_z
     # J = [[fx/z, 0, -fx x / z^2], [0, fy/z, -fy y / z^2]]
@@ -151,7 +249,7 @@ def project(scene: GaussianScene, cam: Camera) -> Projected:
         ],
         dim=-2,
     )  # (N, 2, 3)
-    cov2d_full = J @ cov3d_cam @ J.transpose(-1, -2)          # (N, 2, 2)
+    cov2d_full = small_matmul(small_matmul(J, cov3d_cam), J.transpose(-1, -2))  # (N, 2, 2)
     a = cov2d_full[:, 0, 0] + COV2D_BLUR
     b = cov2d_full[:, 0, 1]
     c = cov2d_full[:, 1, 1] + COV2D_BLUR
@@ -173,9 +271,9 @@ def project(scene: GaussianScene, cam: Camera) -> Projected:
     # --- color + opacity ---
     cam_pos = -R.T @ t
     dirs = scene.means3d - cam_pos[None, :]
-    dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)
+    dirs = dirs / (row_norm(dirs) + 1e-12)
     rgb = eval_sh(scene.sh, dirs)
-    alpha = torch.sigmoid(scene.opacity)
+    alpha = _sigmoid(scene.opacity)
 
     # --- culling (paper Fig 1: invisible Gaussians removed) ---
     in_front = z > cam.znear

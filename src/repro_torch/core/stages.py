@@ -28,8 +28,15 @@ import torch
 from repro_torch.core.bitmask import GroupBitmasks, compact_tiles, generate_bitmasks, tile_bits
 from repro_torch.core.camera import Camera
 from repro_torch.core.gaussians import GaussianScene
-from repro_torch.core.grouping import BinTable, GridSpec, PairSet, bin_pairs, identify
-from repro_torch.core.projection import Projected, project
+from repro_torch.core.grouping import (
+    BinTable,
+    GridSpec,
+    PairSet,
+    bin_pairs,
+    identify,
+    merge_bin_tables,
+)
+from repro_torch.core.projection import Projected, ShardedProjected, project
 from repro_torch.core.raster import rasterize
 from repro_torch.kernels.bitmask_gen import bitmask_kernel
 from repro_torch.kernels.layout import LANE, pack_features
@@ -91,6 +98,14 @@ class Backend(abc.ABC):
     def bin(self, pairs: PairSet, num_bins: int, capacity: int) -> BinTable:
         return bin_pairs(pairs, num_bins, capacity)
 
+    # -- stage 3b: cross-shard merge (scene-sharded frontend) ------------
+    def merge(self, tables: BinTable, depth: torch.Tensor) -> BinTable:
+        """Combine D per-shard bin tables (shard-stacked, gauss_idx already
+        global) into the global depth-ordered table. The same stable merge
+        on every backend: it keeps the (depth, insertion-order) tie-break
+        bit for bit (core/grouping.py::merge_bin_tables)."""
+        return merge_bin_tables(tables, depth)
+
     # -- stage 4: bitmask generation (BGM) -------------------------------
     @abc.abstractmethod
     def bitmasks(self, proj, gtable, grid, method, *, chunk: int = 32) -> GroupBitmasks:
@@ -141,11 +156,13 @@ class ReferenceBackend(Backend):
         )
 
 
-def refuse_grad(proj: Projected) -> None:
-    """Raise when autograd records and a float feature of ``proj`` requires
-    grad: the hand kernels record no graph, so a loss through them would
-    have no gradient. Raised on every device, also where the wrappers run
-    their plain versions."""
+def refuse_grad(proj) -> None:
+    """Raise when autograd records and a float feature of ``proj`` (flat or
+    sharded) requires grad: the hand kernels record no graph, so a loss
+    through them would have no gradient. Raised on every device, also where
+    the wrappers run their plain versions."""
+    if isinstance(proj, ShardedProjected):
+        proj = proj.shards
     if torch.is_grad_enabled() and any(
         getattr(proj, f.name).requires_grad for f in dataclasses.fields(proj)
     ):

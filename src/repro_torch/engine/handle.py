@@ -1,8 +1,14 @@
 """The session-style rendering handle (mirror of ``repro.engine.handle`` for
-a replicated commit on one device, DESIGN.md §11).
+a commit on one device, DESIGN.md §11).
 
 ``engine.open(scene, cfg)`` commits the scene to the device once and
 returns a :class:`Renderer`:
+
+  * ``scene_shards=D`` (or a pre-sharded ``ShardedScene``) commits D
+    logical shards of the gaussian axis on the handle's device: the layout
+    is staged on the host through the refcounted scene-layout cache
+    (``serving/sharded.py``) and moved to the device once; renders are
+    bitwise those of D = 1 (DESIGN.md §10);
 
   * ``.render(cam)`` / ``.render_batch(cams, pad_to=...)`` are the
     synchronous entry points; a batch renders lane by lane through the same
@@ -17,10 +23,11 @@ returns a :class:`Renderer`:
     registered with ``core.pipeline.register_render_cache`` so
     ``render_cache_info()`` covers it;
   * ``.close()`` (or the context manager) drains the worker, fails what it
-    never resolved, unregisters the cache and releases the scene.
+    never resolved, unregisters the cache and releases the scene and its
+    own scene-layout reference.
 
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: meshes, several devices and scene sharding (queue 1, item 8);
+item: meshes and several devices (queue 1, item 8);
 tile-parameter autotune, paged residency and stream sessions (item 11);
 the module-default handles behind the JAX package's deprecated free
 functions (item 6).
@@ -52,13 +59,20 @@ from repro_torch.core.pipeline import (
     render,
     render_backend,
     render_frontend,
+    resolve_feature_gather,
     unregister_render_cache,
 )
 from repro_torch.core.projection import projected_bytes_per_gaussian
+from repro_torch.launch.mesh import render_mesh_shards
 from repro_torch.obs import emit_request_spans, get_registry, get_tracer
 from repro_torch.serving.bucketing import BucketingScheduler, padded_size
 from repro_torch.serving.queue import QueueClosed, RequestQueue
-from repro_torch.serving.sharded import pad_camera_batch
+from repro_torch.serving.sharded import (
+    acquire_scene_layout,
+    pad_camera_batch,
+    release_scene_layout,
+)
+from repro_torch.sharding.scene import SceneLike, ShardedScene
 from repro_torch.utils import pytree_bytes, resolve_device
 from repro_torch.utils.misc import not_ported
 
@@ -106,37 +120,60 @@ class Renderer:
 
     def __init__(
         self,
-        scene: GaussianScene,
+        scene: SceneLike,
         cfg: RenderConfig,
         *,
         device=None,
+        scene_shards: Union[str, int] = "auto",
         device_budget_mb: Optional[float] = None,
         max_batch: int = 8,
         max_wait: float = 0.05,
         queue_depth: int = 64,
         clock=time.monotonic,
     ):
+        shards = self._resolve_shards(scene, cfg, scene_shards)
+        # One device: the shard axis stays logical (render_mesh_shards over
+        # one device is 1), so neither budget term divides by D.
+        phys = render_mesh_shards(1, shards)
+        cfg_updates = {}
+        if cfg.scene_shards != shards:
+            cfg_updates["scene_shards"] = shards
+        if shards > 1 and cfg.feature_gather == "auto":
+            cfg_updates["feature_gather"] = self._resolved_gather(cfg, shards, phys)
+        cfg = dataclasses.replace(cfg, **cfg_updates) if cfg_updates else cfg
         check_config(cfg)
         self._device = resolve_device(device)
         self._cfg = cfg
-        # Per-device budget model (DESIGN.md §12) for a replicated commit:
-        # the scene parameters plus the per-camera projected features, both
-        # whole (one physical shard, feature divisor 1).
-        self._scene_mb_per_device = pytree_bytes(scene) / 2**20
-        self._feature_mb_per_device = (
-            scene.num_gaussians * projected_bytes_per_gaussian() / 2**20
-        )
+        # Per-device budget model (DESIGN.md §12): the scene parameters at
+        # 1/phys plus the per-camera projected features at the padded count
+        # over the feature divisor.
+        self._scene_mb_per_device = pytree_bytes(scene) / phys / 2**20
+        fdiv = self._feature_div(cfg, shards, phys)
+        self._feature_mb_per_device = self._feature_mb(scene, shards) / fdiv
         need = self._scene_mb_per_device + self._feature_mb_per_device
         if device_budget_mb is not None and need > device_budget_mb:
             raise ValueError(
-                f"scene needs {need:.2f} MB/device replicated "
+                f"scene needs {need:.2f} MB on its one device "
                 f"({self._scene_mb_per_device:.2f} MB parameters + "
                 f"{self._feature_mb_per_device:.2f} MB per-camera projected "
-                f"features at N/1), over the {device_budget_mb} MB budget — "
-                f"sharding the scene is not ported yet (ROADMAP queue 1, "
-                f"item {_ITEM_SHARDING})"
+                f"features at N/{fdiv}), over the {device_budget_mb} MB budget — "
+                f"logical shards on one device divide neither; sharding over "
+                f"several devices is not ported yet (ROADMAP queue 1, item "
+                f"{_ITEM_SHARDING})"
             )
-        self._scene: Optional[GaussianScene] = scene.to(self._device)
+        # What the commit runs ('flat' for a replicated frontend, even
+        # though cfg.feature_gather may still read 'auto').
+        self._feature_gather = self._resolved_gather(cfg, shards, phys)
+        self._phys_shards = phys
+        # Commit: a plain scene sharded D > 1 ways is staged on the host
+        # through the refcounted layout cache (the layout survives until the
+        # last handle over it closes), then moved to the device once.
+        staged = scene
+        self._layout_ref = None
+        if shards > 1 and isinstance(scene, GaussianScene):
+            staged = acquire_scene_layout(scene, shards)
+            self._layout_ref = (scene, shards)
+        self._scene: Optional[SceneLike] = staged.to(self._device)
 
         # Per-handle renderer cache, visible through the engine-wide
         # registry through a weakref, so the registry never pins the handle;
@@ -185,6 +222,16 @@ class Renderer:
     def closed(self) -> bool:
         return self._closed
 
+    @property
+    def scene_shards(self) -> int:
+        """The committed number of gaussian-axis shards D."""
+        return self._cfg.scene_shards
+
+    @property
+    def tile_params(self) -> tuple:
+        """The committed (tile, group, tile_capacity)."""
+        return (self._cfg.tile, self._cfg.group, self._cfg.tile_capacity)
+
     def stats(self) -> dict:
         """Committed layout + per-handle cache and futures counters. Also
         publishes them as per-handle gauges in the metrics registry
@@ -193,20 +240,20 @@ class Renderer:
         prefix = f"engine.{self.cache_name}."
         registry.gauge(prefix + "scene_mb_per_device").set(self._scene_mb_per_device)
         registry.gauge(prefix + "feature_mb_per_device").set(self._feature_mb_per_device)
-        registry.gauge(prefix + "physical_shards").set(1)
+        registry.gauge(prefix + "physical_shards").set(self._phys_shards)
         with self._worker_lock:
             counters = dict(self._counters)
         for k, v in counters.items():
             registry.gauge(prefix + k).set(v)
         return {
             "config": self._cfg,
-            "tile_params": (self._cfg.tile, self._cfg.group, self._cfg.tile_capacity),
+            "tile_params": self.tile_params,
             "device": str(self._device),
-            "scene_shards": 1,
-            "physical_shards": 1,
+            "scene_shards": self._cfg.scene_shards,
+            "physical_shards": self._phys_shards,
             "scene_mb_per_device": self._scene_mb_per_device,
             "feature_mb_per_device": self._feature_mb_per_device,
-            "feature_gather": "flat",
+            "feature_gather": self._feature_gather,
             "cache": self.cache_info(),
             **counters,
         }
@@ -225,6 +272,52 @@ class Renderer:
             self._fns.clear()
             self._fn_stats["hits"] = 0
             self._fn_stats["misses"] = 0
+
+    # -- budget model (DESIGN.md §12) ----------------------------------------
+
+    @staticmethod
+    def _feature_mb(scene, shards: int) -> float:
+        """Per-camera projected-feature MB at the padded gaussian count
+        (padding rows project too; they are culled, not skipped)."""
+        if isinstance(scene, ShardedScene):
+            n_pad = scene.padded_size
+        else:
+            d = max(shards, 1)
+            n_pad = -(-scene.num_gaussians // d) * d
+        return n_pad * projected_bytes_per_gaussian() / 2**20
+
+    @staticmethod
+    def _resolved_gather(cfg: RenderConfig, shards: int, phys: int) -> str:
+        """The gather strategy this commit runs."""
+        if shards <= 1:
+            return "flat"       # replicated frontend: features are flat-N
+        if cfg.feature_gather == "auto":
+            return "psum" if phys > 1 else "index"
+        return resolve_feature_gather(cfg)
+
+    @classmethod
+    def _feature_div(cls, cfg: RenderConfig, shards: int, phys: int) -> int:
+        """What divides the per-camera feature bytes per device: ``phys``
+        only when the psum gather keeps them sharded over physical shards;
+        1 for a replicated scene, a logical shard axis, the plain indexed
+        gather and the flat concat."""
+        if phys > 1 and cls._resolved_gather(cfg, shards, phys) == "psum":
+            return phys
+        return 1
+
+    @staticmethod
+    def _resolve_shards(scene, cfg: RenderConfig, scene_shards) -> int:
+        requested = cfg.scene_shards if scene_shards == "auto" else int(scene_shards)
+        if requested < 1:
+            raise ValueError(f"scene_shards must be >= 1, got {requested}")
+        if isinstance(scene, ShardedScene):
+            if scene_shards != "auto" and requested != scene.num_shards:
+                raise ValueError(
+                    f"scene is pre-sharded {scene.num_shards} ways but "
+                    f"scene_shards={requested} was requested"
+                )
+            return scene.num_shards
+        return requested
 
     # -- per-handle renderer cache -------------------------------------------
 
@@ -477,6 +570,11 @@ class Renderer:
         get_registry().drop(f"engine.{self.cache_name}.")
         self._cache_clear()
         self._scene = None
+        if self._layout_ref is not None:
+            # Only this handle's own (scene, D) reference: the cached host
+            # layout drops when the last reference goes.
+            release_scene_layout(*self._layout_ref)
+            self._layout_ref = None
 
     def __enter__(self) -> "Renderer":
         return self
@@ -488,12 +586,13 @@ class Renderer:
         state = "closed" if self._closed else "open"
         return (
             f"<Renderer {self.cache_name} {state} mode={self._cfg.mode!r} "
-            f"backend={self._cfg.backend!r} device={self._device}>"
+            f"backend={self._cfg.backend!r} scene_shards={self._cfg.scene_shards} "
+            f"device={self._device}>"
         )
 
 
 def open(  # noqa: A001 — the module-level session verb is the API
-    scene: GaussianScene,
+    scene: SceneLike,
     cfg: RenderConfig,
     *,
     device=None,
@@ -513,9 +612,11 @@ def open(  # noqa: A001 — the module-level session verb is the API
       commit raises.
     * ``max_batch``/``max_wait``/``queue_depth`` — the ``submit()`` futures
       front-end's batching knobs; ``clock`` is the scheduler's clock.
-    * ``scene_shards`` — ``'auto'`` or 1; ``devices``, ``mesh``, other shard
-      counts, ``tile_params``, ``autotune_opts`` and ``residency`` raise
-      ``NotImplementedError`` naming their ROADMAP item.
+    * ``scene_shards`` — ``'auto'`` takes D from ``cfg.scene_shards``, or
+      from a pre-sharded ``ShardedScene``; an int D commits D logical shards
+      on the one device (``feature_gather='auto'`` runs ``'index'``).
+    * ``devices``, ``mesh``, ``tile_params``, ``autotune_opts`` and
+      ``residency`` raise ``NotImplementedError`` naming their ROADMAP item.
     """
     for name in unported:
         if name not in _UNPORTED_OPTIONS:
@@ -524,13 +625,9 @@ def open(  # noqa: A001 — the module-level session verb is the API
             f"open({name}=...) is not ported yet (ROADMAP queue 1, item "
             f"{_UNPORTED_OPTIONS[name]})"
         )
-    if scene_shards not in ("auto", 1):
-        raise NotImplementedError(
-            f"open(scene_shards={scene_shards!r}) is not ported yet (ROADMAP queue 1, "
-            f"item {_ITEM_SHARDING})"
-        )
     return Renderer(
-        scene, cfg, device=device, device_budget_mb=device_budget_mb,
+        scene, cfg, device=device, scene_shards=scene_shards,
+        device_budget_mb=device_budget_mb,
         max_batch=max_batch, max_wait=max_wait, queue_depth=queue_depth, clock=clock,
     )
 

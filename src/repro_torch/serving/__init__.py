@@ -1,11 +1,12 @@
-"""Render-serving primitives: queue -> bucketing, and batch padding.
+"""Render-serving primitives: queue -> bucketing, batch padding and the
+scene-layout cache.
 
 ``queue`` and ``bucketing`` are copies of the JAX package's pure-Python
 modules (DESIGN.md §9): importing them touches no device. The engine
-handle's futures front-end is built on them. ``pad_camera_batch`` touches
-tensors and is re-exported lazily. The server, its stats and the
-scene-sharded layout cache are not ported yet (ROADMAP queue 1, items 8
-and 10).
+handle's futures front-end is built on them. ``pad_camera_batch`` and the
+scene-layout cache (``sharded.py``) touch tensors and are re-exported
+lazily. The server and its stats are not ported yet (ROADMAP queue 1,
+item 10).
 """
 from repro_torch.serving.bucketing import (
     Bucket,
@@ -16,7 +17,11 @@ from repro_torch.serving.bucketing import (
 )
 from repro_torch.serving.queue import QueueClosed, QueueFull, RenderRequest, RequestQueue
 
-_LAZY = {"pad_camera_batch": "repro_torch.serving.sharded"}
+_LAZY = {
+    name: "repro_torch.serving.sharded"
+    for name in ("acquire_scene_layout", "evict_scene_layouts", "pad_camera_batch",
+                 "release_scene_layout", "shard_scene_cached")
+}
 
 __all__ = [
     "Bucket",

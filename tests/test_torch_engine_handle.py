@@ -261,6 +261,158 @@ def test_dropped_handle_is_not_pinned_by_registry(scene, cfg):
     assert name not in render_cache_info()
 
 
+# -- scene sharding: logical shards on one device, the scene-layout cache ----------
+
+
+def test_open_scene_shards_commits_logical_shards(jax_scene, scene, cfg):
+    """open(scene_shards=2), once an unported option, commits two logical
+    shards: render, the two halves, render_batch and submit bitwise equal
+    the D = 1 handle's render; a pre-sharded ShardedScene commits the same;
+    stats() and the handle properties report what the JAX handle reports
+    for the same commit."""
+    from repro import engine as jax_engine
+    from repro.core.pipeline import RenderConfig as JRenderConfig
+
+    from repro_torch.sharding import shard_scene
+
+    cam, cams = _cam(), camera.orbit_cameras(2, 4.5, 64, 64)
+    with _open(scene, cfg) as one:
+        want, want_b = one.render(cam), [one.render(c) for c in cams]
+    with _open(scene, cfg, scene_shards=2, max_batch=2, max_wait=30.0) as r, \
+            _open(shard_scene(scene, 2), cfg) as pre:
+        _assert_bitwise(r.render(cam), want, "D=2 render")
+        _assert_bitwise(pre.render(cam), want, "pre-sharded render")
+        _assert_bitwise(r.render_backend(r.render_frontend(cam), cam), want, "D=2 halves")
+        batch = r.render_batch(cams, pad_to=2)
+        futs = [r.submit(c) for c in cams]
+        for i, c in enumerate(cams):
+            _assert_bitwise(_lane(batch, i), want_b[i], f"D=2 batch lane {i}")
+            _assert_bitwise(futs[i].result(timeout=RESULT_TIMEOUT),
+                            want_b[i].map(torch.Tensor.cpu), f"D=2 submit {i}")
+        stats, pre_stats = r.stats(), pre.stats()
+        assert (r.scene_shards, pre.scene_shards, r.cfg.feature_gather) == (2, 2, "index")
+        assert pre_stats["scene_shards"] == 2 and pre_stats["feature_gather"] == "index"
+    jr = jax_engine.open(jax_scene, JRenderConfig(**CFG_KW), scene_shards=2)
+    try:
+        jstats = jr.stats()
+        assert (r.scene_shards, r.tile_params) == (jr.scene_shards, jr.tile_params)
+        for key in ("scene_shards", "physical_shards", "feature_gather", "tile_params",
+                    "scene_mb_per_device", "feature_mb_per_device"):
+            assert stats[key] == jstats[key], key
+    finally:
+        jr.close()
+
+
+@pytest.mark.parametrize("shards", [1, 3])
+def test_handle_properties_match_jax(jax_scene, scene, shards):
+    """scene_shards and tile_params: the committed shard count and
+    (tile, group, tile_capacity), as the JAX handle reports them."""
+    from repro import engine as jax_engine
+    from repro.core.pipeline import RenderConfig as JRenderConfig
+
+    kw = dict(CFG_KW, tile=8, group=32, tile_capacity=128)
+    jr = jax_engine.open(jax_scene, JRenderConfig(**kw), scene_shards=shards)
+    try:
+        with _open(scene, RenderConfig(**kw), scene_shards=shards) as r:
+            assert (r.scene_shards, r.tile_params) == (jr.scene_shards, jr.tile_params)
+            assert r.tile_params == (8, 32, 128) and r.scene_shards == shards
+            assert r.stats()["tile_params"] == jr.stats()["tile_params"]
+    finally:
+        jr.close()
+
+
+def test_render_cache_covers_scene_layout(scene):
+    """render_cache_clear()/render_cache_info() cover the scene-layout
+    cache: hits and misses per (scene, D), and a clear drops it."""
+    from repro_torch.serving.sharded import shard_scene_cached
+
+    render_cache_clear()
+    info = render_cache_info()
+    assert (info["scene_layout"]["hits"], info["scene_layout"]["misses"]) == (0, 0)
+    a = shard_scene_cached(scene, 2)
+    b = shard_scene_cached(scene, 2)    # hit: same scene, same layout
+    shard_scene_cached(scene, 4)        # miss: another shard count
+    assert a is b and a.shards.means3d.device.type == "cpu"
+    info = render_cache_info()["scene_layout"]
+    assert (info["hits"], info["misses"], info["currsize"]) == (1, 2, 2)
+    render_cache_clear()
+    info = render_cache_info()["scene_layout"]
+    assert (info["hits"], info["misses"], info["currsize"]) == (0, 0, 0)
+
+
+def test_sharded_handle_close_empties_registry(scene, cfg):
+    """A D = 2 handle stages one host layout; close() releases it with the
+    handle's renderer cache, so the registry is empty afterwards."""
+    render_cache_clear()
+    cam = _cam()
+    r = _open(scene, dataclasses.replace(cfg, scene_shards=2))
+    r.render(cam)
+    name = r.cache_name
+    info = render_cache_info()
+    assert info[name]["currsize"] == 1 and info["scene_layout"]["currsize"] == 1
+    r.close()
+    info = render_cache_info()
+    assert name not in info
+    assert sum(k["currsize"] for k in info.values()) == 0, info
+    with pytest.raises(RuntimeError, match="closed"):
+        r.render(cam)
+    r.close()                           # idempotent
+
+
+def test_close_releases_only_own_layout(scene, cfg):
+    """close() releases exactly the handle's own (scene, D) reference; an
+    unreferenced layout of the same scene stays until it is evicted."""
+    from repro_torch.serving.sharded import evict_scene_layouts, shard_scene_cached
+
+    render_cache_clear()
+    r = _open(scene, cfg, scene_shards=2)
+    shard_scene_cached(scene, 3)        # a second, unreferenced layout
+    assert evict_scene_layouts(scene) == 1          # the handle's survives
+    shard_scene_cached(scene, 3)
+    assert render_cache_info()["scene_layout"]["currsize"] == 2
+    r.close()
+    assert render_cache_info()["scene_layout"]["currsize"] == 1
+    assert evict_scene_layouts(scene) == 1
+    assert render_cache_info()["scene_layout"]["currsize"] == 0
+
+
+def test_close_keeps_layout_shared_with_other_open_handle(scene, cfg):
+    """Two handles on one scene share one layout: closing one keeps it for
+    the other, which still renders; the last close drops it."""
+    render_cache_clear()
+    cam = _cam()
+    a = _open(scene, cfg, scene_shards=2)
+    b = _open(scene, cfg, scene_shards=2)
+    assert render_cache_info()["scene_layout"] == {
+        "hits": 1, "misses": 1, "currsize": 1, "maxsize": 16}
+    a.close()
+    assert render_cache_info()["scene_layout"]["currsize"] == 1
+    _assert_bitwise(b.render(cam), pipeline.render(scene, cam, cfg), "survivor")
+    b.close()
+    assert render_cache_info()["scene_layout"]["currsize"] == 0
+
+
+def test_layout_cache_fifo_skips_referenced_and_follows_scene_gc(scene, cfg):
+    """Past its 16 layouts the cache drops the oldest unreferenced entries
+    first and keeps a layout an open handle holds; a scene that is garbage
+    collected takes its layouts with it."""
+    from repro_torch.serving import sharded
+
+    render_cache_clear()
+    with _open(scene, cfg, scene_shards=2):
+        scenes = [dataclasses.replace(scene) for _ in range(sharded._LAYOUT_CACHE_MAX)]
+        for s in scenes:
+            sharded.shard_scene_cached(s, 2)
+        info = render_cache_info()["scene_layout"]
+        assert info["currsize"] == sharded._LAYOUT_CACHE_MAX
+        assert (id(scene), 2) in sharded._layout_cache           # referenced: kept
+        assert (id(scenes[0]), 2) not in sharded._layout_cache   # oldest free: dropped
+        del s, scenes
+        gc.collect()
+        assert list(sharded._layout_cache) == [(id(scene), 2)]
+    assert render_cache_info()["scene_layout"]["currsize"] == 0
+
+
 # -- the futures contract --------------------------------------------------------
 
 
@@ -324,7 +476,7 @@ def test_close_fails_futures_the_worker_never_resolved(scene, cfg):
 
 @pytest.mark.parametrize("option,item", [
     (dict(devices=2), "item 8"), (dict(mesh=object()), "item 8"),
-    (dict(scene_shards=2), "item 8"), (dict(tile_params="auto"), "item 11"),
+    (dict(tile_params="auto"), "item 11"),
     (dict(autotune_opts={}), "item 11"), (dict(residency=object()), "item 11"),
 ])
 def test_unported_open_options_raise(scene, cfg, option, item):

@@ -6,6 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import make_camera, random_scene
 from repro.core import grouping as jgrouping
@@ -105,3 +106,72 @@ def test_sort_op_count_and_tile_maps():
     )
     with pytest.raises(ValueError):
         grouping.GridSpec(96, 96, 16, 40)
+
+
+# -- the cross-shard merge (tests/test_grouping.py, merge cases) ---------------------
+
+
+def _synthetic_pairs(rng, n_gauss, span, num_bins):
+    """Gaussian-major pair list whose depths are one value per gaussian,
+    rounded to integers so that different gaussians tie; about a tenth of
+    the pairs are misses (bin id num_bins, depth +inf)."""
+    S = span * span
+    bin_id = rng.integers(0, num_bins + 1, size=(n_gauss, S)).astype(np.int32)
+    hit = bin_id < num_bins
+    gauss_depth = np.round(rng.uniform(1.0, 9.0, size=n_gauss)).astype(np.float32)
+    depth = np.where(hit, gauss_depth[:, None], np.inf).astype(np.float32)
+    gauss = np.broadcast_to(np.arange(n_gauss, dtype=np.int32)[:, None], (n_gauss, S))
+    return bin_id, gauss, depth, hit, gauss_depth
+
+
+def _pair_set(bin_id, gauss, depth, hit):
+    zero = jnp.zeros((), jnp.int32)
+    return jgrouping.PairSet(
+        bin_id=jnp.asarray(bin_id.reshape(-1)), gauss_idx=jnp.asarray(gauss.reshape(-1)),
+        depth=jnp.asarray(depth.reshape(-1)), valid=jnp.asarray(hit.reshape(-1)),
+        n_candidate_tests=zero, n_pairs=zero, n_span_overflow=zero,
+    )
+
+
+@pytest.mark.parametrize("n_gauss", [60, 9])
+@pytest.mark.parametrize("shards", [1, 2, 3, 4])
+@pytest.mark.parametrize("capacity", [128, 6])
+def test_merge_bin_tables_matches_reference(n_gauss, shards, capacity):
+    """The merge of D per-shard tables: integer for integer the JAX
+    package's merge_bin_tables on the same tables, and the port's bin_pairs
+    of the global pair set. Depth ties across gaussians, per-bin overflow
+    (capacity 6; none at 128), D = 1 .. 4, and padding rows as the sharded
+    frontend makes them (their pairs all misses): 9 gaussians in 4 shards
+    of 3 leave the last shard all padding."""
+    rng = np.random.default_rng(n_gauss * 10 + shards)
+    span, num_bins = 3, 7
+    bin_id, gauss, depth, hit, gauss_depth = _synthetic_pairs(rng, n_gauss, span, num_bins)
+    want_global = grouping.bin_pairs(
+        pairs_to_torch(_pair_set(bin_id, gauss, depth, hit)), num_bins, capacity)
+
+    size = -(-n_gauss // shards)
+    pad = size * shards - n_gauss
+    rows = lambda a, fill: np.concatenate([a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+    bin_id, depth, hit = rows(bin_id, num_bins), rows(depth, np.inf), rows(hit, False)
+    pad_depth = np.concatenate([gauss_depth, np.full(pad, np.inf, np.float32)])
+    local = np.broadcast_to(np.arange(size, dtype=np.int32)[:, None], (size, span * span))
+    tables = []
+    for d in range(shards):
+        sl = slice(d * size, (d + 1) * size)
+        tables.append(jgrouping.bin_pairs(
+            _pair_set(bin_id[sl], local, depth[sl], hit[sl]), num_bins, capacity))
+    stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *tables)
+    offs = (jnp.arange(shards, dtype=jnp.int32) * size)[:, None, None]
+    gidx = jnp.where(stacked.entry_valid, stacked.gauss_idx + offs, 0)
+    keys = jnp.where(stacked.entry_valid, jnp.asarray(pad_depth)[gidx], jnp.inf)
+    want = jgrouping.merge_bin_tables(dataclasses.replace(stacked, gauss_idx=gidx), keys)
+
+    got = grouping.merge_bin_tables(
+        grouping.BinTable(gauss_idx=t(gidx), entry_valid=t(stacked.entry_valid),
+                          lengths=t(stacked.lengths), overflow=t(stacked.overflow)),
+        t(keys))
+    _assert_tables_equal(got, want)
+    for f in ("gauss_idx", "entry_valid", "lengths", "overflow"):
+        a, b = getattr(got, f), getattr(want_global, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+    assert (int(got.overflow) > 0) == (capacity == 6)

@@ -160,7 +160,27 @@ def test_engine_open_on_cpu_equals_render(small_scene):
         engine.open(small_scene, cfg, device="cpu", residency=object())
 
 
-@pytest.mark.parametrize("change", [dict(scene_shards=2), dict(timing=True)])
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_scene_shards_config_renders_like_one_shard(small_scene, backend):
+    """scene_shards=2 (once an unported config) renders bitwise like one
+    shard through render, render_batch and engine.open, which commits the
+    two shards and reports them."""
+    cam = camera.make_camera(**SMALL_CAM)
+    cfg = pipeline.RenderConfig(backend=backend, **SMALL_CFG)
+    want = pipeline.render(small_scene, cam, cfg)
+    two = dataclasses.replace(cfg, scene_shards=2)
+    outs = [pipeline.render(small_scene, cam, two),
+            pipeline.render_batch(small_scene, [cam], two).map(lambda x: x[0])]
+    with engine.open(small_scene, two, device="cpu") as r:
+        outs.append(r.render(cam))
+        assert (r.scene_shards, r.stats()["scene_shards"], r.stats()["feature_gather"]) == (
+            2, 2, "index")
+    for got in outs:
+        assert torch.equal(got.image, want.image)
+        assert got.stats.as_dict() == want.stats.as_dict()
+
+
+@pytest.mark.parametrize("change", [dict(timing=True)])
 def test_unported_config_raises(small_scene, change):
     cfg = pipeline.RenderConfig(**change)
     cam = camera.make_camera(**SMALL_CAM)
@@ -248,6 +268,8 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.kernels.bitmask_gen, repro_torch.kernels.raster_tile\n"
         "import repro_torch.kernels.bitonic_sort, repro_torch.obs, repro_torch.serving\n"
         "import repro_torch.serving.sharded, repro_torch.utils\n"
+        "import repro_torch.sharding, repro_torch.sharding.scene, repro_torch.launch.mesh\n"
+        "from repro_torch.sharding import ShardedScene\n"
         "import repro_torch.optim, repro_torch.core.train, repro_torch.core.metrics\n"
         "import repro_torch.core.cost_model, repro_torch.examples.train_gaussians\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))]\n"
