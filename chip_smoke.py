@@ -81,6 +81,27 @@ line each:
                 tile_baseline frame (the tile RM once), read just after;
                 frame ms at D = 1, 2 and 7 (host clock to synchronize,
                 median of 10) and each D's peak memory.
+     timed    — RenderConfig(timing=True), fenced per-stage spans: the main
+                frame through engine.open(scene, cfg_timed).render(cam), one
+                warm render then 10, image and every counter bitwise equal to
+                the render phase's frame, the BGM and the fused RM once per
+                frame, the stage/{project,identify,bin,bitmask,compact,
+                rasterize,render} spans validated; each stage span's median
+                ms, their sum, the umbrella's median and the glue (umbrella
+                minus its stages), beside the untimed frame's median (host
+                clock to synchronize, 10 frames). 10 timed frames at D = 2
+                (bitwise the sharded phase's, one stage/merge, two spans of
+                each frontend stage a frame), a timed render_batch of the
+                batch phase's cameras (bitwise its lanes), and a timed
+                lossless tile_baseline frame (bitwise, the tile RM once). The
+                device's busy share of an untimed main frame: the union of
+                its kernel intervals over the frame's host-clock span, from a
+                torch.profiler trace of three frames (the median one). Then
+                the one-shot CLI in a subprocess
+                (python -m repro_torch.launch.render --backend cuda at
+                1952x1088, capacity 8192, --stats --trace-json): exit 0, its
+                counter lines equal an in-process engine.open render at its
+                config, its trace valid with at least 7 stage span names.
   6. train    — scene training (core/train.py) on the main path's scene,
                 camera and config, backend reference, outside inference
                 mode: the main path's image is the target, the scene is
@@ -112,6 +133,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -168,6 +190,9 @@ WIDE_CHUNK, WIDE_GAUSSIANS, WIDE_SIZE = 2048, 20_000, (256, 192)
 TRAIN_STEPS = 4
 SHARDS = (2, 7)           # sharded: 1,026,000 = 7 x 146,572 - 4, so D = 7 pads
 HOST_GAUSSIANS, HOST_SIZE, HOST_TILE_CAPACITY = 20_000, (256, 192), 1024
+CLI_CAPACITY = 8192       # timed: the one-shot CLI's --capacity
+STAGE_SPANS = ("stage/project", "stage/identify", "stage/bin", "stage/bitmask",
+               "stage/compact", "stage/rasterize", "stage/render")
 LOSS_RTOL = 1e-4
 GRAD_TOL = 1e-4           # max-abs difference over the field's largest magnitude
 
@@ -418,7 +443,8 @@ def sharded_phase(dev, on_card, check, cfg, scene, cam, cams, main, batch_one, s
     """The scene in D logical shards on one card, bitwise against the D = 1
     renders of this run: ``main`` (the main path's frame), ``batch_one``
     (the batch phase's render_batch) and ``lossless_one`` (the lossless
-    gstg frame). Returns the sharded path's launches of each kernel."""
+    gstg frame). Returns the sharded path's launches of each kernel and the
+    D = 2 frame."""
     import torch
 
     from repro_torch import engine
@@ -465,6 +491,8 @@ def sharded_phase(dev, on_card, check, cfg, scene, cam, cams, main, batch_one, s
             sync()
             launches[shards] = dict(build.LAUNCHES)
             same[f"D{shards}"] = bitwise(out, main)
+            if shards == 2:
+                d2_frame = out
             del out
             times[shards], frame_each[shards] = frame_ms(h)
             gathers[shards] = h.stats()["feature_gather"]
@@ -524,7 +552,227 @@ def sharded_phase(dev, on_card, check, cfg, scene, cam, cams, main, batch_one, s
     return {"bitmask_gen": launches[2]["bitmask_gen"],
             "raster_group_fused": launches[2]["raster_group_fused"],
             "raster_tile": tile_launches["raster_tile"],
-            "bitonic_sort": launches[2]["bitonic_sort"]}
+            "bitonic_sort": launches[2]["bitonic_sort"]}, d2_frame
+
+
+def stage_breakdown(events) -> dict:
+    """The tracer's stage spans frame by frame: each ``stage/render``
+    umbrella and the stage spans on its lane inside it. Returns each stage
+    name's median ms (its spans summed within a frame), the sum of those
+    medians, the umbrella's median, the glue (umbrella minus the sum of its
+    stages, median over frames) and each name's spans per frame."""
+    stages = [e for e in events if e.category == "stage" and e.name != "stage/render"]
+    per_name, umbrella, glue, counts = {}, [], [], {}
+    for u in (e for e in events if e.name == "stage/render"):
+        inside = [e for e in stages if e.tid == u.tid and u.t0 <= e.t0 and e.t1 <= u.t1]
+        sums = {}
+        for e in inside:
+            sums[e.name] = sums.get(e.name, 0.0) + e.duration_s * 1e3
+            counts.setdefault(e.name, set()).add(sum(x.name == e.name for x in inside))
+        for name, ms in sums.items():
+            per_name.setdefault(name, []).append(ms)
+        umbrella.append(u.duration_s * 1e3)
+        glue.append(u.duration_s * 1e3 - sum(sums.values()))
+    medians = {k: statistics.median(v) for k, v in per_name.items()}
+    return {"frames": len(umbrella), "stage_ms_median": medians,
+            "stage_sum_ms": sum(medians.values()),
+            "umbrella_ms_median": statistics.median(umbrella) if umbrella else None,
+            "glue_ms_median": statistics.median(glue) if glue else None,
+            "glue_ms": glue, "spans_per_frame": {k: sorted(v) for k, v in counts.items()}}
+
+
+def busy_share(on_card, fn, frames: int = 3) -> dict:
+    """``frames`` calls of ``fn`` (a frame, ending in a synchronize) under
+    torch.profiler, each in its own range: per frame, the union of the
+    device's kernel, copy and memset intervals inside the frame's host-clock
+    span, over that span. Returns the median frame's numbers and each
+    frame's share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    if not on_card:
+        return {"busy_share": None, "note": "not measured: no card"}
+    fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(frames):
+            with record_function(f"chip_smoke/frame{i}"):
+                fn()
+                torch.cuda.synchronize()
+    path = ROOT / "build" / "repro_torch" / "frame_profile.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    device = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    rows = []
+    for i in range(frames):
+        (frame,) = [e for e in events if e.get("name") == f"chip_smoke/frame{i}"
+                    and e.get("cat") == "user_annotation"]
+        f0, f1 = float(frame["ts"]), float(frame["ts"]) + float(frame["dur"])
+        spans = sorted((max(a, f0), min(b, f1)) for a, b in device if min(b, f1) > max(a, f0))
+        busy, end = 0.0, f0
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        rows.append({"busy_share": busy / (f1 - f0), "busy_ms": busy / 1e3,
+                     "frame_ms": (f1 - f0) / 1e3, "device_ops": len(spans)})
+    rows.sort(key=lambda r: r["busy_share"])
+    return {**rows[frames // 2], "busy_share_each": [r["busy_share"] for r in rows]}
+
+
+def run_cli(dev, width: int, height: int) -> dict:
+    """The one-shot render CLI in a subprocess (as a user runs it) at the
+    main frame's size; its exit code, printed counters and trace."""
+    trace = Path("build/repro_torch/render_trace.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.render", "--scene", "train",
+           "--backend", "cuda", "--device", dev.type, "--width", str(width),
+           "--height", str(height), "--capacity", str(CLI_CAPACITY), "--stats",
+           "--trace-json", str(trace)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    printed = {}
+    for line, key in (("visible gaussians", "n_visible"), ("sort keys", "n_pairs_sort"),
+                      ("alpha ops", "alpha_ops"), ("overflow", "overflow")):
+        m = re.search(rf"{line}\s*: (\d+)", proc.stdout)
+        printed[key] = int(m.group(1)) if m else None
+    doc = json.loads((ROOT / trace).read_text()) if (ROOT / trace).exists() else None
+    return {"cmd": " ".join(cmd[1:]), "returncode": proc.returncode, "printed": printed,
+            "stdout": proc.stdout, "stderr_tail": proc.stderr[-2000:], "trace": doc,
+            "wall_s": time.perf_counter() - t}
+
+
+def timed_phase(dev, on_card, check, smi, cfg, scene, cam, cams, main_one, d2_one, batch_one,
+                scene_l, cam_l, lossless_base, width, height) -> None:
+    """RenderConfig(timing=True) against this run's untimed frames: the main
+    frame (``main_one``), the sharded phase's D = 2 frame (``d2_one``), the
+    batch phase's lanes (``batch_one``) and the lossless tile_baseline frame
+    (``lossless_base``); then the busy share and the CLI."""
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.configs import scene_and_camera
+    from repro_torch.core import RenderConfig, render
+    from repro_torch.kernels import build
+    from repro_torch.obs import Tracer, set_tracer, validate_chrome_trace
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def bitwise(out, want) -> bool:
+        return bool(torch.equal(out.image, want.image)) and all(
+            torch.equal(getattr(out.stats, f.name), getattr(want.stats, f.name))
+            for f in dataclasses.fields(out.stats))
+
+    t_phase = time.perf_counter()
+    timed = dataclasses.replace(cfg, timing=True)
+    tracer = Tracer(enabled=False)       # stage spans are forced: timing is the opt-in
+    prev = set_tracer(tracer)
+    same = {}
+    try:
+        # The main frame: one warm render, then REPS measured.
+        with engine.open(scene, timed, device=dev) as h:
+            h.render(cam)
+            tracer.clear()
+            build.reset_launches()
+            outs = [h.render(cam) for _ in range(REPS)]
+            sync()
+            launches = dict(build.LAUNCHES)
+        same["main"] = all(bitwise(o, main_one) for o in outs)
+        del outs
+        main_events = tracer.events()
+        main_errors = validate_chrome_trace(tracer.chrome_trace())
+        names = {e.name for e in main_events}
+        main = stage_breakdown(main_events)
+        # The untimed frame, in this phase: host clock to synchronize.
+        with engine.open(scene, cfg, device=dev) as h:
+            h.render(cam)
+            sync()
+            untimed = []
+            for _ in range(REPS):
+                t = time.perf_counter()
+                h.render(cam)
+                sync()
+                untimed.append((time.perf_counter() - t) * 1e3)
+            busy = busy_share(on_card, lambda: (h.render(cam), sync()))
+
+        # D = 2: REPS frames after a warm one.
+        with engine.open(scene, timed, device=dev, scene_shards=2) as h:
+            h.render(cam)
+            tracer.clear()
+            same["D2"] = all([bitwise(h.render(cam), d2_one) for _ in range(REPS)])
+            d2 = stage_breakdown(tracer.events())
+            d2_errors = validate_chrome_trace(tracer.chrome_trace())
+
+        # render_batch of the batch phase's cameras.
+        with engine.open(scene, timed, device=dev) as h:
+            same["render_batch"] = bitwise(h.render_batch(cams, pad_to=len(cams)), batch_one)
+
+        # The lossless tile_baseline frame: the tile RM under timing.
+        base_cfg = dataclasses.replace(timed, mode="tile_baseline")
+        render(scene_l, cam_l, base_cfg)
+        tracer.clear()
+        build.reset_launches()
+        same["lossless_tile_baseline"] = bitwise(render(scene_l, cam_l, base_cfg),
+                                                 lossless_base)
+        sync()
+        tile_launches = dict(build.LAUNCHES)
+        tile_names = {e.name for e in tracer.events()}
+    finally:
+        set_tracer(prev)
+
+    # The one-shot CLI, and the same render in process at its config.
+    cli = run_cli(dev, width, height)
+    cli_scene, cli_cam = scene_and_camera("train", None, width, height, device=dev)
+    cli_cfg = RenderConfig(mode="gstg", tile=16, group=64, boundary_group="ellipse",
+                           boundary_tile="ellipse", tile_capacity=CLI_CAPACITY,
+                           group_capacity=CLI_CAPACITY, span=6, backend="cuda")
+    with engine.open(cli_scene, cli_cfg, device=dev) as h:
+        want = h.render(cli_cam).stats.as_dict()
+    cli_want = {k: want[k] for k in cli["printed"]}
+    cli_doc = cli.pop("trace")
+    cli_errors = validate_chrome_trace(cli_doc) if cli_doc else ["no trace written"]
+    cli_stages = sorted({e["name"] for e in (cli_doc or {}).get("traceEvents", [])
+                         if e.get("cat") == "stage"})
+    stdout = cli.pop("stdout")
+    del cli_scene
+
+    emit({"phase": "timed", "nvidia_smi": smi, "gaussians": scene.num_gaussians,
+          "width": width, "height": height, "config": CFG_KW, "backend": cfg.backend,
+          "bitwise_vs_untimed": same, "launches_per_frame": {
+              k: launches[k] / REPS for k in ("bitmask_gen", "raster_group_fused")},
+          "main": main, "untimed_frame_ms_median": statistics.median(untimed),
+          "untimed_frame_ms": untimed, "trace_errors": main_errors[:5], "D2": d2,
+          "D2_trace_errors": d2_errors[:5], "tile_baseline_launches": tile_launches,
+          "device_busy": busy, "phase_s": time.perf_counter() - t_phase})
+    emit({"phase": "timed", "check": "cli", **cli, "in_process": cli_want,
+          "trace_errors": cli_errors[:5], "stage_spans": cli_stages,
+          "stdout_tail": stdout[-3000:]})
+    for what, ok in same.items():
+        check(ok, f"timed: {what} is not bitwise equal to the untimed render")
+    check(set(STAGE_SPANS) <= names, f"timed: stage spans {sorted(names)}")
+    check(not main_errors and not d2_errors,
+          f"timed: the traces do not validate: {main_errors[:3]} {d2_errors[:3]}")
+    check(main["frames"] == REPS, f"timed: {main['frames']} umbrellas for {REPS} frames")
+    check(all(launches[k] == REPS for k in ("bitmask_gen", "raster_group_fused")),
+          f"timed: {REPS} frames launched {launches}")
+    check(d2["frames"] == REPS and d2["spans_per_frame"].get("stage/merge") == [1]
+          and all(d2["spans_per_frame"].get(f"stage/{s}") == [2]
+                  for s in ("project", "identify", "bin")),
+          f"timed: D = 2 spans per frame {d2['spans_per_frame']}")
+    check(tile_launches["raster_tile"] == 1 and "stage/rasterize" in tile_names,
+          f"timed: the tile_baseline frame launched {tile_launches}")
+    check(not on_card or (busy["device_ops"] > 0 and 0 < busy["busy_share"] <= 1),
+          f"timed: no device activity in the profiled frame: {busy}")
+    check(cli["returncode"] == 0, f"timed: the CLI exited {cli['returncode']}: "
+                                  f"{cli['stderr_tail'][-500:]}")
+    check(cli["printed"] == cli_want,
+          f"timed: CLI counters {cli['printed']} != in-process {cli_want}")
+    check(not cli_errors and len(cli_stages) >= 7,
+          f"timed: CLI trace errors {cli_errors[:3]}, stage spans {cli_stages}")
 
 
 def main() -> int:
@@ -558,7 +806,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
 
     from repro_torch import engine
     from repro_torch.kernels import build
-    from repro_torch.configs import PAPER_SCENES
+    from repro_torch.configs import PAPER_SCENES, scene_and_camera
     from repro_torch.core import GridSpec, RenderConfig, make_camera, render, scene_like_paper
     from repro_torch.core.gaussians import random_scene
     from repro_torch.core.bitmask import GroupBitmasks, compact_tiles
@@ -660,10 +908,8 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
 
     # -- main-path inputs ------------------------------------------------------
     spec = PAPER_SCENES["train"]
-    cam = make_camera((0.0, spec.extent * 0.35, spec.extent * 1.5), (0, 0, 0),
-                      width, height, fov_x_deg=62.0)
+    scene, cam = scene_and_camera("train", n_main, width, height, device=dev)
     cfg = RenderConfig(backend="cuda", **CFG_KW)
-    scene = scene_like_paper("train", n_main, device=dev)
     front = render_frontend(scene, cam, cfg)
     grid = GridSpec(width, height, cfg.tile, cfg.group, cfg.span)
     gtable = front.table
@@ -1158,12 +1404,16 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
           f"cost_model: an estimate is not finite, or a total not positive: {costs}")
     check(costs["gstg"]["total_s"] < costs["tile_baseline"]["total_s"],
           "cost_model: gstg's modelled total is not below tile_baseline's")
-    del base
 
     # -- sharded: logical shards of the gaussian axis, against D = 1 ---------
-    sharded_launches = sharded_phase(dev, on_card, check, cfg, scene, cam, cams, main_one,
-                                     batch, scene_l, cam_l, ours)
-    del ours, scene_l, scene, batch, main_one
+    sharded_launches, d2_frame = sharded_phase(dev, on_card, check, cfg, scene, cam, cams,
+                                               main_one, batch, scene_l, cam_l, ours)
+    del ours
+
+    # -- timed: fenced per-stage spans, bitwise against this run's frames ----
+    timed_phase(dev, on_card, check, smi, cfg, scene, cam, cams, main_one, d2_frame, batch,
+                scene_l, cam_l, base, width, height)
+    del scene_l, scene, batch, main_one, d2_frame, base
 
     # -- 6. scene training at the main path's size, outside inference mode ----
     with torch.inference_mode(False):

@@ -1,5 +1,6 @@
 """The paper's six evaluation scenes (Table II) + synthetic stand-in specs
-(copy of ``repro.configs.gs_scenes``: pure data).
+(copy of ``repro.configs.gs_scenes``: pure data), and ``scene_and_camera``,
+a scene's stand-in with its eval camera.
 
 Pretrained 3D-GS-30k checkpoints are not available offline; the synthetic
 generator reproduces the statistics the paper's effect depends on (Gaussian
@@ -49,3 +50,23 @@ EVAL_RESOLUTION: Dict[str, tuple] = {
     "rubble": (640, 480),
     "residence": (640, 448),
 }
+
+
+def scene_and_camera(name: str, n_gaussians=None, width=None, height=None, *, device=None):
+    """A paper scene's synthetic stand-in and its eval camera (the port's
+    copy of ``benchmarks/common.py::scene_and_camera``): the scene seeded
+    from the crc32 of its name (``core/gaussians.py::scene_like_paper``) on
+    ``device`` (CUDA by default), the camera at ``(0, 0.35 extent, 1.5
+    extent)`` looking at the origin with a 62 degree horizontal field of
+    view. ``width``/``height`` override the eval resolution."""
+    from repro_torch.core.camera import make_camera
+    from repro_torch.core.gaussians import scene_like_paper
+
+    spec = PAPER_SCENES[name]
+    w, h = EVAL_RESOLUTION[name]
+    scene = scene_like_paper(name, n_gaussians, device=device)
+    cam = make_camera(
+        (0.0, spec.extent * 0.35, spec.extent * 1.5), (0, 0, 0),
+        width or w, height or h, fov_x_deg=62.0,
+    )
+    return scene, cam

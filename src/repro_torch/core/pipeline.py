@@ -23,8 +23,13 @@ With ``scene_shards = D > 1`` (or a ``ShardedScene``) the frontend runs per
 shard of the gaussian axis and merges the D bin tables with a stable sort
 (``core/grouping.py::merge_bin_tables``); image and every counter are
 bitwise those of D = 1 (DESIGN.md §10). On one device the shard axis is
-logical. The timed-stage mode (``timing=True``) of the JAX package is not
-ported yet and raises.
+logical.
+
+With ``timing=True`` every stage runs fenced through
+``core/stages.py::TimedBackend`` and records a ``stage/<name>`` span;
+``render`` adds the umbrella span ``stage/render``. The image and every
+counter are bitwise those of an untimed render. The fences serialize the
+stages, so a timed frame's wall time is not the untimed frame's.
 
 On the ``reference`` backend ``render`` is differentiable in the scene
 (core/train.py): only projection, the feature gathers and the blend record
@@ -35,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -48,11 +54,17 @@ from repro_torch.core.projection import (
     ShardedProjected,
     proj_valid_count,
 )
-from repro_torch.core.stages import Backend, get_backend
-from repro_torch.obs import get_registry
+from repro_torch.core.stages import (
+    Backend,
+    get_backend,
+    timed_backend,
+    timed_stage_cache_clear,
+    timed_stage_cache_info,
+)
+from repro_torch.obs import get_registry, get_tracer
 from repro_torch.sharding.scene import SceneLike, ShardedScene, shard_scene
 from repro_torch.utils import wide_count_sum
-from repro_torch.utils.misc import not_ported
+from repro_torch.utils.misc import fence, not_ported
 
 MODES = ("gstg", "tile_baseline", "group_baseline")
 
@@ -72,7 +84,7 @@ class RenderConfig:
     backend: str = "reference"         # stage implementation: reference | cuda
     scene_shards: int = 1              # D: gaussian-axis shards (DESIGN.md §10)
     feature_gather: str = "auto"       # sharded feature gathers: auto (-> index) | index | psum | flat
-    timing: bool = False               # timed-stage mode (not ported)
+    timing: bool = False               # fenced per-stage spans (DESIGN.md §14)
 
 
 @dataclasses.dataclass
@@ -137,15 +149,10 @@ def _grid(cam, cfg: RenderConfig) -> GridSpec:
 
 def check_config(cfg: RenderConfig) -> None:
     """Raise for a mode or feature-gather strategy the port does not know, a
-    shard count below 1, a feature it has not ported yet, or a gstg grid
-    whose member tiles outgrow the 32-bit tile mask."""
+    shard count below 1, or a gstg grid whose member tiles outgrow the
+    32-bit tile mask."""
     if cfg.scene_shards < 1:
         raise ValueError(f"scene_shards must be >= 1, got {cfg.scene_shards}")
-    if cfg.timing:
-        raise NotImplementedError(
-            "timing=True is not ported yet (ROADMAP queue 1, item 9: "
-            "observability and TimedBackend)"
-        )
     if cfg.mode not in MODES:
         raise ValueError(f"unknown mode {cfg.mode!r}")
     if cfg.feature_gather != "auto" and cfg.feature_gather not in FEATURE_GATHER_STRATEGIES:
@@ -205,16 +212,35 @@ def render(
     the scene's device. ``scene`` is a plain GaussianScene or a ShardedScene
     with ``cfg.scene_shards`` shards."""
     check_config(cfg)
+    backend = _stage_backend(cfg)
+    if cfg.timing:
+        tracer = get_tracer()
+        fence(scene)       # work queued before the call stays out of the frame
+        t0 = tracer.clock()
+    out = _run_backend(backend, _run_frontend(backend, scene, cam, cfg), cam, cfg, background)
+    if cfg.timing:
+        fence(out.image)
+        # The umbrella over the whole staged render; the stage spans nest
+        # under it on the calling thread's lane.
+        tracer.complete(
+            "stage/render", t0, tracer.clock(), category="stage",
+            args={"mode": cfg.mode, "backend": cfg.backend}, force=True,
+        )
+    return out
+
+
+def _stage_backend(cfg: RenderConfig) -> Backend:
+    """``cfg.backend``, wrapped in its TimedBackend when ``cfg.timing``."""
     backend = get_backend(cfg.backend)
-    front = _run_frontend(backend, scene, cam, cfg)
-    return _run_backend(backend, front, cam, cfg, background)
+    return timed_backend(backend) if cfg.timing else backend
 
 
 def render_frontend(scene: SceneLike, cam: Camera, cfg: RenderConfig) -> FrontendResult:
     """The frontend half of :func:`render`: project -> identify -> bin (and
-    the cross-shard merge when sharded)."""
+    the cross-shard merge when sharded). Timed stages record their spans,
+    without the umbrella."""
     check_config(cfg)
-    return _run_frontend(get_backend(cfg.backend), scene, cam, cfg)
+    return _run_frontend(_stage_backend(cfg), scene, cam, cfg)
 
 
 def render_backend(
@@ -228,7 +254,7 @@ def render_backend(
     ``render(scene, cam, cfg)``; only the static geometry of ``cam`` is
     read."""
     check_config(cfg)
-    return _run_backend(get_backend(cfg.backend), front, cam, cfg, background)
+    return _run_backend(_stage_backend(cfg), front, cam, cfg, background)
 
 
 def _frontend_spec(cfg: RenderConfig, grid: GridSpec) -> tuple:
@@ -536,6 +562,13 @@ def render_cache_info() -> dict:
     return out
 
 
+# The TimedBackend wrappers (core/stages.py) are a render-path cache like any
+# other, under the JAX package's name for its per-stage program cache.
+register_render_cache(
+    "timed_stage", info=timed_stage_cache_info, clear=timed_stage_cache_clear
+)
+
+
 def _collect_render_caches(registry) -> None:
     """Metrics collector: publish every render cache's hit/miss/size table
     as ``render_cache.<name>.<field>`` gauges at snapshot time; the prefix
@@ -564,7 +597,46 @@ def render_batch(
     return _batch_renderer(*batch_signature(cfg, batch))(scene, batch, background)
 
 
-_ITEM_SHIMS = "6: the JAX package's deprecated free functions"
-render_jit = not_ported("render_jit", _ITEM_SHIMS)
-render_image = not_ported("render_image", _ITEM_SHIMS)
+def render_jit(
+    scene: SceneLike,
+    cam: Camera,
+    cfg: RenderConfig,
+    background: Optional[torch.Tensor] = None,
+) -> RenderResult:
+    """Deprecated: ``repro_torch.engine.open(scene, cfg).render(cam)``.
+
+    Delegates to the module-default handle for ``(scene, cfg)`` on the
+    scene's device (``repro_torch.engine.default_renderer``): repeated calls
+    with any camera of one resolution reuse its cached renderer."""
+    warnings.warn(
+        "render_jit() is deprecated; open a handle with "
+        "repro_torch.engine.open(scene, cfg) and call .render(cam)",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    from repro_torch import engine
+
+    return engine.default_renderer(scene, cfg).render(cam, background)
+
+
+def render_image(
+    scene: SceneLike,
+    cam: Camera,
+    cfg: RenderConfig,
+    background: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Deprecated: ``render(scene, cam, cfg).image`` for differentiable use,
+    or ``repro_torch.engine.open(scene, cfg).render(cam).image`` for
+    repeated rendering through a committed handle (DESIGN.md §11)."""
+    warnings.warn(
+        "render_image() is deprecated; use render(scene, cam, cfg).image "
+        "(differentiable) or repro_torch.engine.open(scene, cfg).render(cam).image",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    from repro_torch import engine
+
+    return engine.default_renderer(scene, cfg).render(cam, background).image
+
+
 frontend_stats = not_ported("frontend_stats", "11: streams, autotune and residency")

@@ -15,12 +15,16 @@ A ``Backend`` supplies the stage implementations behind ``render()``:
 The ``cuda`` backend's compact stage is virtual: the fused RM kernel applies
 the bitmask filter in registers, so only the per-tile lengths/overflow are
 computed (a popcount) to keep the counters identical to the reference.
+
+``TimedBackend`` wraps either backend for ``RenderConfig(timing=True)``:
+each stage fenced and recorded as a ``stage/<name>`` span.
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
 import math
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -48,6 +52,8 @@ from repro_torch.kernels.ops import (
     tiles_in_image,
 )
 from repro_torch.kernels.raster_tile import raster_group_fused_kernel, raster_tile_kernel
+from repro_torch.obs import get_tracer
+from repro_torch.utils.misc import fence
 
 
 @dataclasses.dataclass
@@ -240,6 +246,116 @@ class CudaBackend(Backend):
             alpha_ops=torch.sum(counts[:, :, 0].to(torch.int64)),
             blend_ops=torch.sum(counts[:, :, 1].to(torch.int64)),
         )
+
+
+class TimedBackend(Backend):
+    """Per-stage timed execution of a wrapped backend (DESIGN.md §14).
+
+    Every stage call is fenced on both sides (``utils/misc.py::fence``: a
+    synchronize of the stage's CUDA device, nothing on the CPU), so the host
+    interval between the fences is the stage's device time. It is recorded
+    as a ``stage/<name>`` span on the process tracer (``force=True``:
+    ``RenderConfig.timing`` is the opt-in) inside a
+    ``torch.profiler.record_function`` of the same name, so the spans line
+    up with a device trace when the profiler runs.
+
+    The inner stage runs as it is, on the same tensors: a fence changes no
+    result, so a timed render is bitwise the untimed one, and on the
+    ``reference`` backend autograd records the same graph. The sharded
+    frontend loops over its shards, so each shard's project, identify and
+    bin is a span of its own (the JAX package records one vmapped span per
+    stage).
+    """
+
+    def __init__(self, inner: Backend):
+        self.inner = inner
+        self.name = f"timed:{inner.name}"
+
+    def _run(self, stage: str, fn, *args, **kwargs):
+        tracer = get_tracer()
+        fence(args)
+        t0 = tracer.clock()
+        with torch.profiler.record_function(f"stage/{stage}"):
+            out = fn(*args, **kwargs)
+        fence(args)
+        tracer.complete(
+            f"stage/{stage}", t0, tracer.clock(), category="stage",
+            args={"backend": self.inner.name}, force=True,
+        )
+        return out
+
+    def project(self, scene, cam):
+        return self._run("project", self.inner.project, scene, cam)
+
+    def identify(self, proj, grid, level, method):
+        return self._run("identify", self.inner.identify, proj, grid, level, method)
+
+    def bin(self, pairs, num_bins, capacity):
+        return self._run("bin", self.inner.bin, pairs, num_bins, capacity)
+
+    def merge(self, tables, depth):
+        return self._run("merge", self.inner.merge, tables, depth)
+
+    def bitmasks(self, proj, gtable, grid, method, *, chunk=32):
+        return self._run("bitmask", self.inner.bitmasks, proj, gtable, grid, method,
+                         chunk=chunk)
+
+    def compact(self, gtable, masks, grid, tile_capacity):
+        return self._run("compact", self.inner.compact, gtable, masks, grid, tile_capacity)
+
+    def rasterize_tiles(self, proj, table, grid, *, background, chunk, early_exit):
+        return self._run("rasterize", self.inner.rasterize_tiles, proj, table, grid,
+                         background=background, chunk=chunk, early_exit=early_exit)
+
+    def rasterize_groups(self, proj, gtable, masks, compacted, grid, *,
+                         background, chunk, early_exit, tile_capacity):
+        return self._run("rasterize", self.inner.rasterize_groups, proj, gtable, masks,
+                         compacted, grid, background=background, chunk=chunk,
+                         early_exit=early_exit, tile_capacity=tile_capacity)
+
+
+# The TimedBackend wrappers, one per inner backend. The JAX package caches a
+# jit'd program per timed stage under the render-cache name "timed_stage";
+# the port compiles no per-stage programs, so its counterpart caches the
+# wrappers, keyed by the inner backend's name (core/pipeline.py registers it
+# under the same name). Bounded FIFO.
+_TIMED_MAX = 128
+_timed_lock = threading.Lock()
+_timed: Dict[str, TimedBackend] = {}
+_timed_stats = {"hits": 0, "misses": 0}
+
+
+def timed_backend(inner: Backend) -> TimedBackend:
+    """The cached TimedBackend around ``inner``. A backend registered anew
+    under a cached name is a miss, and its wrapper replaces the old one."""
+    with _timed_lock:
+        hit = _timed.get(inner.name)
+        if hit is not None and hit.inner is inner:
+            _timed_stats["hits"] += 1
+            return hit
+        _timed_stats["misses"] += 1
+        _timed.pop(inner.name, None)
+        while len(_timed) >= _TIMED_MAX:
+            _timed.pop(next(iter(_timed)))
+        _timed[inner.name] = out = TimedBackend(inner)
+        return out
+
+
+def timed_stage_cache_info() -> dict:
+    with _timed_lock:
+        return {
+            "hits": _timed_stats["hits"],
+            "misses": _timed_stats["misses"],
+            "currsize": len(_timed),
+            "maxsize": _TIMED_MAX,
+        }
+
+
+def timed_stage_cache_clear() -> None:
+    with _timed_lock:
+        _timed.clear()
+        _timed_stats["hits"] = 0
+        _timed_stats["misses"] = 0
 
 
 _BACKENDS: Dict[str, Backend] = {}

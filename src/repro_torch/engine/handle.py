@@ -26,11 +26,13 @@ returns a :class:`Renderer`:
     never resolved, unregisters the cache and releases the scene and its
     own scene-layout reference.
 
+``default_renderer(scene, cfg)`` is the module-default handle behind the
+deprecated free functions (``render_jit``, ``render_image``,
+``render_batch_sharded``), committed on the scene's own device.
+
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
 item: meshes and several devices (queue 1, item 8);
-tile-parameter autotune, paged residency and stream sessions (item 11);
-the module-default handles behind the JAX package's deprecated free
-functions (item 6).
+tile-parameter autotune, paged residency and stream sessions (item 11).
 """
 from __future__ import annotations
 
@@ -74,13 +76,11 @@ from repro_torch.serving.sharded import (
 )
 from repro_torch.sharding.scene import SceneLike, ShardedScene
 from repro_torch.utils import pytree_bytes, resolve_device
-from repro_torch.utils.misc import not_ported
 
 _HANDLE_SEQ = itertools.count()
 _FN_CACHE_MAX = 64          # per-handle cached-renderer bound
 _ITEM_SHARDING = "8: sharding along the gaussian axis"
 _ITEM_STREAMS = "11: streams, residency, autotune"
-_ITEM_DEFAULTS = "6: the module-default handles behind the deprecated free functions"
 # open() options of the JAX handle the port does not take yet -> queue item.
 _UNPORTED_OPTIONS = {
     "devices": _ITEM_SHARDING,
@@ -632,5 +632,50 @@ def open(  # noqa: A001 — the module-level session verb is the API
     )
 
 
-default_renderer = not_ported("default_renderer", _ITEM_DEFAULTS)
-close_default_renderers = not_ported("close_default_renderers", _ITEM_DEFAULTS)
+# ---------------------------------------------------------------------------
+# Module-default handles (the deprecation shims' delegate)
+# ---------------------------------------------------------------------------
+
+_DEFAULT_MAX = 32
+_default_handles: Dict[tuple, Renderer] = {}
+
+
+def default_renderer(scene: SceneLike, cfg: RenderConfig, *, mesh=None) -> Renderer:
+    """The module-default handle for ``(scene, cfg)`` on the scene's device.
+
+    Backs the deprecated free functions (``render_jit``, ``render_image``,
+    ``render_batch_sharded``): repeated calls with one scene and config
+    reuse one committed handle and its cached renderers. The handle commits
+    where the scene lives, as ``core.pipeline.render`` runs there. Bounded
+    FIFO; an evicted handle is closed. ``mesh`` other than None raises
+    (ROADMAP queue 1, item 8).
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            f"default_renderer(mesh=...) is not ported yet (ROADMAP queue 1, item "
+            f"{_ITEM_SHARDING})"
+        )
+    key = (id(scene), cfg, scene.device)
+    handle = _default_handles.get(key)
+    if handle is not None and not handle.closed:
+        return handle
+    handle = Renderer(scene, cfg, device=scene.device)
+    while len(_default_handles) >= _DEFAULT_MAX:
+        _default_handles.pop(next(iter(_default_handles))).close()
+    _default_handles[key] = handle
+    # An id() key alone could alias a recycled object: drop and close the
+    # entry when the scene goes away.
+    weakref.finalize(scene, _drop_default_handle, key)
+    return handle
+
+
+def _drop_default_handle(key) -> None:
+    handle = _default_handles.pop(key, None)
+    if handle is not None:
+        handle.close()
+
+
+def close_default_renderers() -> None:
+    """Close and drop every module-default handle."""
+    while _default_handles:
+        _default_handles.pop(next(iter(_default_handles))).close()

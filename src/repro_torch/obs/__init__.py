@@ -11,8 +11,8 @@ Pure Python: importing ``repro_torch.obs`` imports neither torch nor jax.
     (``Renderer.stats()``, the render-cache registry), exported as a
     schema-versioned snapshot dict or Prometheus text.
 
-The timed-stage backend that feeds per-stage spans is not ported yet
-(ROADMAP queue 1, item 9).
+The per-stage ``stage/<name>`` spans come from ``RenderConfig(timing=True)``
+(``core/stages.py::TimedBackend``).
 """
 from repro_torch.obs.trace import (
     REQUEST_PHASES,

@@ -12,20 +12,28 @@
     when its last handle closes, never under another open handle), and
     ``evict_scene_layouts`` drops a scene's unreferenced layouts.
 
-The deprecated ``render_batch_sharded`` raises (ROADMAP queue 1, item 6).
+The deprecated ``render_batch_sharded`` delegates to the module-default
+engine handle (``repro_torch.engine.default_renderer``).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 import weakref
+from typing import Optional, Sequence, Union
 
 import torch
 
 from repro_torch.core.gaussians import GaussianScene
-from repro_torch.core.pipeline import CameraBatch, register_render_cache
+from repro_torch.core.camera import Camera
+from repro_torch.core.pipeline import (
+    CameraBatch,
+    RenderConfig,
+    RenderResult,
+    register_render_cache,
+)
 from repro_torch.serving.bucketing import pad_indices_to
 from repro_torch.sharding.scene import ShardedScene, shard_scene_host
-from repro_torch.utils.misc import not_ported
 
 
 def pad_camera_batch(batch: CameraBatch, target: int) -> CameraBatch:
@@ -144,6 +152,40 @@ def evict_scene_layouts(scene: GaussianScene) -> int:
     return len(keys)
 
 
-render_batch_sharded = not_ported(
-    "render_batch_sharded", "6: the JAX package's deprecated free functions"
-)
+def render_batch_sharded(
+    scene: Union[GaussianScene, ShardedScene],
+    cams: Union[CameraBatch, Sequence[Camera]],
+    cfg: RenderConfig,
+    background=None,
+    *,
+    mesh=None,
+    pad_to: Optional[int] = None,
+    scene_shards: Optional[int] = None,
+) -> RenderResult:
+    """Deprecated: ``repro_torch.engine.open(scene, cfg).render_batch(cams,
+    pad_to=...)``.
+
+    Delegates to the module-default handle for ``(scene, cfg)``:
+    ``scene_shards`` (default: ``cfg.scene_shards``, or the layout of an
+    already-sharded scene) selects the gaussian-axis shard count D, the
+    batch is padded to ``max(B, pad_to)`` and exactly B images and stats
+    come back. ``mesh`` other than None raises (ROADMAP queue 1, item 8).
+    """
+    warnings.warn(
+        "render_batch_sharded() is deprecated; open a handle with "
+        "repro_torch.engine.open(scene, cfg) and call "
+        ".render_batch(cams, pad_to=...)",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    if scene_shards is None:
+        scene_shards = (
+            scene.num_shards if isinstance(scene, ShardedScene) else cfg.scene_shards
+        )
+    if cfg.scene_shards != scene_shards:
+        cfg = dataclasses.replace(cfg, scene_shards=scene_shards)
+
+    from repro_torch import engine
+
+    handle = engine.default_renderer(scene, cfg, mesh=mesh)
+    return handle.render_batch(cams, pad_to=pad_to, background=background)

@@ -66,6 +66,10 @@ class ShardedScene:
     def padded_size(self) -> int:
         return self.num_shards * self.shard_size
 
+    @property
+    def device(self) -> torch.device:
+        return self.shards.device
+
     def shard(self, d: int) -> GaussianScene:
         """Shard ``d`` as a plain ``(Ns, ...)`` scene (views, no copy)."""
         return GaussianScene(**{f: getattr(self.shards, f)[d] for f in SCENE_FIELDS})

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections.abc import Mapping
+from typing import Optional
 
 import torch
 
@@ -47,6 +48,32 @@ def pytree_bytes(tree) -> int:
     else:
         return 0
     return sum(pytree_bytes(x) for x in items)
+
+
+def tree_device(tree) -> Optional[torch.device]:
+    """The device of the first tensor in ``tree`` (a tensor, or a dataclass,
+    list or tuple of them, nested), or None when it holds no tensor."""
+    if isinstance(tree, torch.Tensor):
+        return tree.device
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        items = (getattr(tree, f.name) for f in dataclasses.fields(tree))
+    elif isinstance(tree, (list, tuple)):
+        items = iter(tree)
+    else:
+        return None
+    for x in items:
+        dev = tree_device(x)
+        if dev is not None:
+            return dev
+    return None
+
+
+def fence(tree) -> None:
+    """Wait for the work queued on the CUDA device that ``tree``'s tensors
+    live on. On the CPU there is nothing to wait for: ops run eagerly."""
+    dev = tree_device(tree)
+    if dev is not None and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def not_ported(name: str, item: str):

@@ -488,3 +488,39 @@ def test_scene_sharded_render_bitwise_on_the_card(cuda_device, mode, shards):
         assert got.stats.as_dict() == one.stats.as_dict()
     kernels = ("bitmask_gen", "raster_group_fused") if mode == "gstg" else ("raster_tile",)
     assert all(launches[k] == 1 for k in kernels), launches
+
+
+@pytest.mark.parametrize("shards", [1, 3])
+def test_timed_render_bitwise_on_the_card(cuda_device, shards):
+    """RenderConfig(timing=True) on the cuda backend: image and every counter
+    bitwise the untimed render's at D = 1 and 3, through render and a
+    handle; all seven stage spans (merge too when sharded) nest under the
+    umbrella and validate; the timed frame launches the BGM and the fused RM
+    once each."""
+    from repro_torch.obs import Tracer, get_tracer, set_tracer, validate_chrome_trace
+
+    scene, cam, _, _, _, _ = _case()
+    scene = scene.to(cuda_device)
+    cfg = dataclasses.replace(CFG, backend="cuda", scene_shards=shards)
+    timed = dataclasses.replace(cfg, timing=True)
+    want = pipeline.render(scene, cam, cfg)
+    prev = set_tracer(Tracer(enabled=False))
+    try:
+        build.reset_launches()
+        outs = [pipeline.render(scene, cam, timed)]
+        launches = dict(build.LAUNCHES)
+        with engine.open(scene, timed, device=cuda_device) as r:
+            outs.append(r.render(cam))
+        tracer = get_tracer()
+        names = {e.name for e in tracer.events() if e.category == "stage"}
+        errs = validate_chrome_trace(tracer.chrome_trace())
+    finally:
+        set_tracer(prev)
+    for got in outs:
+        assert torch.equal(got.image, want.image)
+        assert got.stats.as_dict() == want.stats.as_dict()
+    stages = {"stage/project", "stage/identify", "stage/bin", "stage/bitmask",
+              "stage/compact", "stage/rasterize", "stage/render"}
+    assert names == stages | ({"stage/merge"} if shards > 1 else set())
+    assert errs == []
+    assert launches["bitmask_gen"] == 1 and launches["raster_group_fused"] == 1, launches

@@ -52,7 +52,7 @@ from repro_torch.serving import (
     pad_indices_to,
     padded_size,
 )
-from torch_parity import IMAGE_TOL, assert_counters_equal, n
+from torch_parity import IMAGE_TOL, assert_counters_equal, n, single_thread  # noqa: F401
 
 INT_COUNTERS = [f.name for f in dataclasses.fields(pipeline.RenderStats)]
 CFG_KW = dict(tile=16, group=64, group_capacity=256, tile_capacity=256)
@@ -485,21 +485,177 @@ def test_unported_open_options_raise(scene, cfg, option, item):
 
 
 def test_unported_entry_points_raise(scene, cfg):
+    """open_stream still raises naming item 11; the default handle and the
+    shims (item 6, now ported) raise naming item 8 for a mesh."""
     from repro_torch.serving.sharded import render_batch_sharded
 
     cam = _cam()
     with _open(scene, cfg) as r:
         with pytest.raises(NotImplementedError, match="item 11"):
             r.open_stream()
-    for fn, args in [
-        (engine.default_renderer, (scene, cfg)), (engine.close_default_renderers, ()),
-        (pipeline.render_jit, (scene, cam, cfg)), (pipeline.render_image, (scene, cam, cfg)),
-        (render_batch_sharded, (scene, [cam], cfg)),
-    ]:
-        with pytest.raises(NotImplementedError, match="item 6"):
-            fn(*args)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        engine.default_renderer(scene, cfg, mesh=object())
+    with pytest.warns(DeprecationWarning, match="render_batch_sharded"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            render_batch_sharded(scene, [cam], cfg, mesh=object())
     with pytest.raises(TypeError, match="unexpected"):
         _open(scene, cfg, max_batchh=2)
+
+
+# -- the deprecated free functions and the module-default handles -----------------
+
+
+@pytest.fixture()
+def default_handles():
+    """Both packages' module-default handles closed after the test."""
+    from repro import engine as jax_engine
+
+    yield
+    engine.close_default_renderers()
+    jax_engine.close_default_renderers()
+
+
+def _shim_calls(scene, cam, cfg, pkg):
+    """(name, call) for each deprecated free function of ``pkg``'s modules;
+    each call returns a RenderResult-like (image, stats) pair."""
+    pipe, sharded = pkg
+    return [
+        ("render_jit", lambda: pipe.render_jit(scene, cam, cfg)),
+        ("render_image", lambda: SimpleNamespace(image=pipe.render_image(scene, cam, cfg),
+                                                 stats=None)),
+        ("render_batch_sharded", lambda: sharded.render_batch_sharded(
+            scene, [cam], cfg, pad_to=2)),
+    ]
+
+
+@pytest.mark.filterwarnings("always::DeprecationWarning")
+def test_shims_warn_once_and_match_jax_shims(jax_scene, scene, cfg, default_handles,
+                                            single_thread):
+    """Each shim warns exactly once per call, attributed to its caller
+    (stacklevel 2), and matches the JAX package's shim: images within
+    tolerance, counters identical."""
+    import warnings
+
+    import repro.core.pipeline as jax_pipeline
+    import repro.serving.sharded as jax_sharded
+    from repro.core import make_camera as jax_make_camera
+    from repro_torch.serving import sharded
+
+    jcfg = JConfig(**CFG_KW)
+    jcam = jax_make_camera((0.0, 1.0, 4.5), (0, 0, 0), 64, 64)
+    port = _shim_calls(scene, _cam(), cfg, (pipeline, sharded))
+    ref = _shim_calls(jax_scene, jcam, jcfg, (jax_pipeline, jax_sharded))
+    for (name, call), (_, jax_call) in zip(port, ref):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = call()
+        deps = [w for w in caught if issubclass(w.category, DeprecationWarning)]
+        assert len(deps) == 1 and name in str(deps[0].message), [str(w.message) for w in deps]
+        assert deps[0].filename == __file__
+        with pytest.warns(DeprecationWarning, match=name):
+            want = jax_call()
+        image = got.image[0] if name == "render_batch_sharded" else got.image
+        np.testing.assert_allclose(
+            n(image), np.asarray(want.image[0] if name == "render_batch_sharded"
+                                 else want.image), **IMAGE_TOL)
+        if got.stats is not None:
+            if name == "render_batch_sharded":
+                assert got.image.shape[0] == 1
+                port_stats = {k: int(getattr(got.stats, k)[0]) for k in INT_COUNTERS}
+                want_stats = SimpleNamespace(**{k: np.asarray(getattr(want.stats, k))[0]
+                                                for k in INT_COUNTERS})
+            else:
+                port_stats, want_stats = got.stats.as_dict(), want.stats
+            assert_counters_equal(port_stats, want_stats)
+
+
+def test_internal_shim_callers_error_under_suite_filters(scene, cfg, default_handles,
+                                                         single_thread):
+    """The suite's ``error::DeprecationWarning:repro`` filter also matches
+    ``repro_torch``: a shim call attributed to a module of the port raises,
+    so no module of the port can come to call a shim."""
+    import textwrap
+    import types
+
+    mod = types.ModuleType("repro_torch._filter_selftest")
+    exec(compile(textwrap.dedent("""
+        def call(scene, cam, cfg):
+            from repro_torch.core.pipeline import render_jit
+            return render_jit(scene, cam, cfg)
+    """), "repro_torch/_filter_selftest.py", "exec"), mod.__dict__)
+    with pytest.raises(DeprecationWarning, match="render_jit"):
+        mod.call(scene, _cam(), cfg)
+
+
+@pytest.mark.filterwarnings("ignore::DeprecationWarning")
+def test_shims_share_one_default_handle(scene, cfg, default_handles, single_thread):
+    """Repeated shim calls with one (scene, cfg) ride one default handle,
+    committed on the scene's device: the second camera of a resolution is a
+    cache hit. close_default_renderers closes it."""
+    from repro_torch.serving.sharded import render_batch_sharded
+
+    cams = [_cam(), _cam((1.5, 0.8, 4.0))]
+    pipeline.render_jit(scene, cams[0], cfg)
+    handle = engine.default_renderer(scene, cfg)
+    assert handle.stats()["device"] == "cpu"
+    before = handle.cache_info()
+    out = pipeline.render_jit(scene, cams[1], cfg)
+    image = pipeline.render_image(scene, cams[1], cfg)
+    assert engine.default_renderer(scene, cfg) is handle
+    after = handle.cache_info()
+    assert (after["hits"], after["misses"]) == (before["hits"] + 2, before["misses"])
+    want = pipeline.render(scene, cams[1], cfg)
+    assert torch.equal(out.image, want.image) and torch.equal(image, want.image)
+    assert out.stats.as_dict() == want.stats.as_dict()
+    batch = render_batch_sharded(scene, cams, cfg)
+    assert engine.default_renderer(scene, cfg) is handle
+    _assert_bitwise(_lane(batch, 1), want, "render_batch_sharded lane")
+    engine.close_default_renderers()
+    assert handle.closed
+    assert engine.default_renderer(scene, cfg) is not handle
+
+
+@pytest.mark.filterwarnings("ignore::DeprecationWarning")
+def test_render_batch_sharded_logical_shards(scene, cfg, default_handles, single_thread):
+    """scene_shards=3 on one device (the JAX package's logical fallback):
+    the lanes equal the replicated render_batch bit for bit, the default
+    handle commits 3 shards, and a pre-sharded scene keeps its own D."""
+    from repro_torch.serving.sharded import render_batch_sharded
+    from repro_torch.sharding import shard_scene_host
+
+    cams = camera.orbit_cameras(2, 4.5, 64, 64)
+    rep = render_batch(scene, cams, cfg)
+    out = render_batch_sharded(scene, cams, dataclasses.replace(cfg, scene_shards=3))
+    _assert_bitwise(out, rep, "scene_shards=3")
+    assert engine.default_renderer(scene, dataclasses.replace(cfg, scene_shards=3)
+                                   ).scene_shards == 3
+    out = render_batch_sharded(scene, cams, cfg, scene_shards=2, pad_to=4)
+    _assert_bitwise(out, rep, "scene_shards=2 pad_to=4")
+    hosted = shard_scene_host(scene, 3)
+    _assert_bitwise(render_batch_sharded(hosted, cams, cfg), rep, "pre-sharded")
+    assert engine.default_renderer(hosted, dataclasses.replace(cfg, scene_shards=3)
+                                   ).scene_shards == 3
+
+
+def test_default_handles_fifo_and_finalizer(scene, cfg, default_handles, single_thread):
+    """At most 32 default handles: the oldest is evicted and closed; a
+    handle whose scene is collected is dropped and closed."""
+    from repro_torch.engine import handle as handle_mod
+
+    handles = [engine.default_renderer(scene, dataclasses.replace(cfg, span=4 + i))
+               for i in range(handle_mod._DEFAULT_MAX)]
+    assert not any(h.closed for h in handles)
+    extra = engine.default_renderer(scene, dataclasses.replace(cfg, span=100))
+    assert handles[0].closed and not any(h.closed for h in handles[1:]) and not extra.closed
+    assert len(handle_mod._default_handles) == handle_mod._DEFAULT_MAX
+    engine.close_default_renderers()
+    assert all(h.closed for h in handles + [extra]) and not handle_mod._default_handles
+    temp = dataclasses.replace(scene)      # same tensors, a new scene object
+    h = engine.default_renderer(temp, cfg)
+    assert len(handle_mod._default_handles) == 1
+    del temp
+    gc.collect()
+    assert h.closed and not handle_mod._default_handles
 
 
 # -- the serving primitives (the pure cases of tests/test_serving.py) -------------

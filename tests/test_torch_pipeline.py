@@ -19,7 +19,7 @@ from repro_torch import engine
 from repro_torch.core import camera, pipeline
 from repro_torch.core.gaussians import scene_from_numpy
 from torch_parity import IMAGE_TOL as TOL
-from torch_parity import assert_counters_equal, n
+from torch_parity import assert_counters_equal, n, single_thread  # noqa: F401
 
 GOLDEN = Path(__file__).resolve().parent / "golden"
 SMALL_CAM = dict(eye=(0.0, 1.0, 4.5), target=(0.0, 0.0, 0.0), width=96, height=96)
@@ -181,13 +181,27 @@ def test_scene_shards_config_renders_like_one_shard(small_scene, backend):
 
 
 @pytest.mark.parametrize("change", [dict(timing=True)])
-def test_unported_config_raises(small_scene, change):
-    cfg = pipeline.RenderConfig(**change)
+def test_unported_config_raises(small_scene, change, single_thread):
+    """A config the port once refused (timing=True, ROADMAP item 9) now
+    renders bitwise like the plain config through render and engine.open,
+    on both backends, and the JAX package's counters agree."""
+    from repro.core.pipeline import render as jax_render
+
     cam = camera.make_camera(**SMALL_CAM)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.render(small_scene, cam, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.open(small_scene, cfg, device="cpu")
+    jscene = random_scene(jax.random.key(7), 400, extent=3.0)
+    for backend in ("reference", "cuda"):
+        plain = pipeline.RenderConfig(backend=backend, **SMALL_CFG)
+        cfg = dataclasses.replace(plain, **change)
+        want = pipeline.render(small_scene, cam, plain)
+        outs = [pipeline.render(small_scene, cam, cfg)]
+        with engine.open(small_scene, cfg, device="cpu") as r:
+            outs.append(r.render(cam))
+        for got in outs:
+            assert torch.equal(got.image, want.image)
+            assert got.stats.as_dict() == want.stats.as_dict()
+    ref = jax_render(jscene, make_camera(**SMALL_CAM), JConfig(**SMALL_CFG, **change))
+    np.testing.assert_allclose(n(want.image), np.asarray(ref.image), **TOL)
+    assert_counters_equal(want.stats.as_dict(), ref.stats)
 
 
 def test_unknown_feature_gather_raises_in_both_packages(small_scene):
@@ -230,7 +244,8 @@ def test_every_feature_gather_renders_alike(small_scene, backend):
 
 def test_core_exports_every_reference_name():
     """Every name of repro.core.__all__ imports from repro_torch.core; the
-    ones not ported yet raise, naming their ROADMAP item."""
+    one not ported yet raises, naming its ROADMAP item, and the deprecated
+    free functions are the pipeline's shims."""
     import repro.core
     import repro_torch.core
 
@@ -238,9 +253,10 @@ def test_core_exports_every_reference_name():
     assert not missing, missing
     for name in repro.core.__all__:
         assert getattr(repro_torch.core, name) is not None
-    for name, item in (("frontend_stats", 11), ("render_image", 6), ("render_jit", 6)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
-            getattr(repro_torch.core, name)()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
+        repro_torch.core.frontend_stats()
+    assert repro_torch.core.render_jit is pipeline.render_jit
+    assert repro_torch.core.render_image is pipeline.render_image
 
 
 def test_entry_points_default_to_cuda(small_scene):
@@ -272,6 +288,7 @@ def test_import_leaves_jax_and_repro_out():
         "from repro_torch.sharding import ShardedScene\n"
         "import repro_torch.optim, repro_torch.core.train, repro_torch.core.metrics\n"
         "import repro_torch.core.cost_model, repro_torch.examples.train_gaussians\n"
+        "import repro_torch.launch.render\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
     )

@@ -62,3 +62,18 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the hand-written kernels run only there")
     return torch.device("cuda")
+
+
+@pytest.fixture()
+def single_thread():
+    """Run the test on one torch thread. The suite runs several test
+    processes at once; tiny renders on many threads each then wait on one
+    another at every op's barrier, and a test takes minutes instead of
+    seconds. Results are compared within the test, so the thread count
+    changes nothing it checks."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
