@@ -54,7 +54,11 @@ line each:
      stages   — each of its six stages timed on its own (CUDA events).
      batch    — the handle's batch and futures paths on four cameras near
                 the main one: render_batch lanes and four submits (one
-                dispatch at max_batch=4) bitwise equal to render(cam_i).
+                dispatch at max_batch=4) bitwise equal to render(cam_i);
+                the submits' own request spans (queue, batch wait, device
+                and host copy, resolve) beside the first submit call (it
+                starts the worker) and the host copy of the stacked lanes
+                alone.
   4. parity   — the same camera on the reference backend on the card:
                 frontend counters equal, image within 1e-4.
   5. lossless — gstg against tile_baseline on the cuda backend (120,000
@@ -102,6 +106,31 @@ line each:
                 1952x1088, capacity 8192, --stats --trace-json): exit 0, its
                 counter lines equal an in-process engine.open render at its
                 config, its trace valid with at least 7 stage span names.
+     serve    — the serving tier at the paper's scene sizes (train
+                1,026,000, truck 2,541,000, playroom 2,343,000 gaussians),
+                every frame 1952x1088 on the cuda backend. Stateless: a
+                RenderServer over train and truck, max_batch 4, 16 requests
+                from poisson_arrivals at 8 req/s in real time, then the same
+                load closed-loop; four train requests in tile_baseline (two
+                configs, one scene copy). Every request completes bitwise
+                equal to Renderer.render of its camera; padded lanes and
+                (closed-loop) dispatches equal the scheduler's arithmetic;
+                the BGM and fused RM launch once per gstg lane, padded lanes
+                included, the tile RM once per tile_baseline lane. Residency:
+                three scenes under a budget that holds the two largest, 9
+                round-robin requests bitwise equal to an unbudgeted server's,
+                evictions > 0, page-in/out spans equal their counters; each
+                page-in's ms and GB/s and memory_allocated. Streams: one
+                stream over train, 24 frames of a 16-pose orbit then an
+                8-frame float32-exact dolly (the speculation worker idle
+                before each frame): every frame bitwise equal to render, 8+
+                exact hits on the second lap, a speculative hit on the dolly,
+                spec/verify spans equal to the frames, the BGM once a frame,
+                the frontend cache counted in the residency entry's cost;
+                hit (backend only) against miss frame ms on a stream
+                without speculation (8 orbit poses, twice). Then the serve CLI
+                in two subprocesses (stateless under a budget, one stream;
+                --parity-check): exit 0, traces that pass the cross-checks.
   6. train    — scene training (core/train.py) on the main path's scene,
                 camera and config, backend reference, outside inference
                 mode: the main path's image is the target, the scene is
@@ -119,10 +148,10 @@ line each:
                 and on the host with the same code: loss rtol 1e-4, each
                 gradient max-abs within 1e-4 of its largest magnitude (the
                 CPU tests' bounds against the JAX package).
-  7. kernels  — every ported kernel: launches on its path and on the
-                sharded path, error, times, bound, library time (torch.sort
-                + gather for the bitonic sort). The train phase launches
-                none of them.
+  7. kernels  — every ported kernel: launches on its path, on the sharded
+                path and in the serve phase's realtime run, error, times,
+                bound, library time (torch.sort + gather for the bitonic
+                sort). The train phase launches none of them.
 
 The last line is {"ok": true, "device": {...}}; any failed check exits
 non-zero before it. Without CUDA, or without the repository beside this
@@ -193,8 +222,35 @@ HOST_GAUSSIANS, HOST_SIZE, HOST_TILE_CAPACITY = 20_000, (256, 192), 1024
 CLI_CAPACITY = 8192       # timed: the one-shot CLI's --capacity
 STAGE_SPANS = ("stage/project", "stage/identify", "stage/bin", "stage/bitmask",
                "stage/compact", "stage/rasterize", "stage/render")
+# serve: the serving tier at the paper's scene sizes (configs/gs_scenes.py).
+SERVE_SCENES = ("train", "truck", "playroom")
+SERVE_AZIMUTHS_DEG = (0.0, -3.0, 3.0, 6.0)
+SERVE_REQUESTS, SERVE_RATE_HZ, SERVE_MAX_BATCH = 16, 8.0, 4
+SERVE_TILE_REQUESTS = (2, 6, 10, 14)      # train requests in tile_baseline mode
+RESIDENCY_REQUESTS = 9
+ORBIT_POSES, ORBIT_FRAMES, DOLLY_FRAMES, DOLLY_STEP = 16, 24, 8, 0.25
+SERVE_CLI_GAUSSIANS = 200_000
 LOSS_RTOL = 1e-4
 GRAD_TOL = 1e-4           # max-abs difference over the field's largest magnitude
+
+
+def eval_cameras(extent: float, azimuths_deg, width: int, height: int) -> list:
+    """Cameras on the circle of a scene's eval camera (``configs/gs_scenes.py::
+    scene_and_camera``: eye (0, 0.35 extent, 1.5 extent), 62 degree field of
+    view, looking at the origin), at these azimuths; azimuth 0 is the eval
+    camera itself, bit for bit."""
+    from repro_torch.core import make_camera
+
+    radius = math.hypot(extent * 0.35, extent * 1.5)
+    elev = math.atan2(extent * 0.35, extent * 1.5)
+    cams = []
+    for deg in azimuths_deg:
+        az = math.radians(deg)
+        eye = ((0.0, extent * 0.35, extent * 1.5) if deg == 0 else
+               (radius * math.cos(elev) * math.sin(az), radius * math.sin(elev),
+                radius * math.cos(elev) * math.cos(az)))
+        cams.append(make_camera(eye, (0, 0, 0), width, height, fov_x_deg=62.0))
+    return cams
 
 
 def emit(obj) -> None:
@@ -555,6 +611,356 @@ def sharded_phase(dev, on_card, check, cfg, scene, cam, cams, main, batch_one, s
             "bitonic_sort": launches[2]["bitonic_sort"]}, d2_frame
 
 
+def run_serve_cli(dev, gaussians: int, width: int, height: int, budget_mb: float) -> dict:
+    """The serve CLI in two subprocesses on the card, started together: a
+    stateless load over two scenes under a budget that holds one, and one
+    stream lapping its orbit; each with --parity-check, a trace and a
+    metrics snapshot."""
+    out_dir = ROOT / "build" / "repro_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    common = ["--backend", "cuda", "--device", dev.type, "--gaussians", str(gaussians),
+              "--resolutions", f"{width}x{height}", "--capacity", "8192",
+              "--max-batch", "2", "--no-realtime", "--parity-check"]
+    runs = {"stateless": ["--scenes", "train,truck", "--requests", "6",
+                          "--device-budget-mb", str(budget_mb)],
+            "stream": ["--scenes", "train", "--streams", "1", "--stream-frames", "18"]}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for name, extra in runs.items():
+        files = [out_dir / f"serve_{name}_trace.json", out_dir / f"serve_{name}_metrics.json"]
+        for f in files:
+            f.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.render_serve", *common, *extra,
+               "--trace-json", str(files[0]), "--metrics-json", str(files[1])]
+        procs[name] = (cmd, files, time.perf_counter(), subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    result = {}
+    for name, (cmd, files, t, proc) in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        docs = [json.loads(f.read_text()) if f.exists() else None for f in files]
+        result[name] = {"cmd": " ".join(cmd[1:]), "returncode": proc.returncode,
+                        "wall_s": time.perf_counter() - t, "stdout_tail": stdout[-1500:],
+                        "stderr_tail": stderr[-1500:], "trace": docs[0], "metrics": docs[1]}
+    return result
+
+
+def serve_phase(dev, on_card, check, smi, width: int, height: int, gaussians=None,
+                cli_gaussians: int = SERVE_CLI_GAUSSIANS) -> dict:
+    """The serving tier on the card at the paper's scene sizes (``gaussians``
+    overrides them for a rehearsal on the host): a stateless RenderServer
+    (realtime, then the same load closed-loop), residency paging over three
+    scenes, one stream session, and the serve CLI. Returns each kernel's
+    launches in the realtime stateless run."""
+    import numpy as np
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.configs import PAPER_SCENES
+    from repro_torch.core import RenderConfig, orbit_cameras, scene_like_paper
+    from repro_torch.core.projection import projected_bytes_per_gaussian
+    from repro_torch.kernels import build
+    from repro_torch.utils import pytree_bytes
+    from repro_torch.obs import (
+        Tracer,
+        get_registry,
+        set_tracer,
+        validate_chrome_trace,
+        validate_residency_trace,
+        validate_stream_trace,
+    )
+    from repro_torch.serving import RenderRequest, RenderServer, poisson_arrivals
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def mem_gb():
+        return torch.cuda.memory_allocated() / 2**30 if on_card else None
+
+    def counters():
+        return dict(get_registry().snapshot()["counters"])
+
+    def delta(before):
+        return {k: v - before.get(k, 0) for k, v in counters().items()}
+
+    t_phase = time.perf_counter()
+    cfg = RenderConfig(backend="cuda", **CFG_KW)
+    cfg_tile = dataclasses.replace(cfg, mode="tile_baseline")
+    scenes = {name: scene_like_paper(name, gaussians or PAPER_SCENES[name].paper_gaussians,
+                                     device=dev)
+              for name in SERVE_SCENES}
+    cams = {name: eval_cameras(PAPER_SCENES[name].extent, SERVE_AZIMUTHS_DEG, width, height)
+            for name in SERVE_SCENES}
+    refs, overflow = {}, {}
+
+    def reference(sid, c, k):
+        """Renderer.render of camera k on a handle of the request's config."""
+        key = (sid, c.mode, k)
+        if key not in refs:
+            with engine.open(scenes[sid], c, device=dev) as h:
+                out = h.render(cams[sid][k])
+                refs[key] = out.image.cpu()
+                overflow[f"{sid}/{c.mode}"] = out.stats.as_dict()["overflow"]
+        return refs[key]
+
+    # -- stateless: train and truck, four train requests in tile_baseline ----
+    def stateless_load():
+        offsets = poisson_arrivals(SERVE_REQUESTS, SERVE_RATE_HZ, seed=0)
+        load = []
+        for i, t in enumerate(offsets):
+            sid = "truck" if i % 2 else "train"
+            c = cfg_tile if i in SERVE_TILE_REQUESTS else cfg
+            load.append((t, RenderRequest(i, sid, cams[sid][(i // 2) % len(SERVE_AZIMUTHS_DEG)],
+                                          c)))
+        return load
+
+    stateless, launches = {}, {}
+    for realtime in (True, False):
+        name = "realtime" if realtime else "closed_loop"
+        load = stateless_load()
+        with RenderServer({k: scenes[k] for k in ("train", "truck")}, device=dev,
+                          max_batch=SERVE_MAX_BATCH, max_wait=0.05) as server:
+            for _, r in load:
+                server.commit(r.scene_id, r.cfg)
+            sync()
+            build.reset_launches()
+            results = server.run(load, realtime=realtime)
+            launches[name] = dict(build.LAUNCHES)
+            summary = server.stats.summary()
+            buckets = {(sig[0], sig[1].mode): (b.requests, b.batches, b.padded, b.render_s)
+                       for sig, b in server.stats.buckets.items()}
+            shared = server.commit("train", cfg).committed_scene.means3d is \
+                server.commit("train", cfg_tile).committed_scene.means3d
+        bitwise = [bool(torch.equal(results[r.request_id].image,
+                                    reference(r.scene_id, r.cfg, (r.request_id // 2) % 4)))
+                   for _, r in load] if sorted(results) == list(range(len(load))) else []
+        want_sig = {}
+        for _, r in load:
+            key = (r.scene_id, r.cfg.mode)
+            want_sig[key] = want_sig.get(key, 0) + 1
+        lanes = {key: b[1] * SERVE_MAX_BATCH for key, b in buckets.items()}
+        gstg_lanes = sum(v for (sid, mode), v in lanes.items() if mode == "gstg")
+        tile_lanes = sum(v for (sid, mode), v in lanes.items() if mode == "tile_baseline")
+        stateless[name] = {
+            "completed": summary["completed"], "batches": summary["batches"],
+            "padded_lanes": summary["padded"], "p50_ms": summary["p50_ms"],
+            "p99_ms": summary["p99_ms"], "req_per_s": summary["fps"],
+            "wall_s": summary["wall_s"],
+            "buckets": {f"{sid}/{mode}": {"requests": b[0], "dispatches": b[1], "padded": b[2],
+                                          "render_s_per_dispatch": b[3] / b[1]}
+                        for (sid, mode), b in buckets.items()},
+            "bitwise_vs_render": bitwise, "launches": launches[name],
+            "one_scene_copy_for_two_configs": shared}
+        check(sorted(results) == list(range(len(load))),
+              f"serve: {name} completed {sorted(results)}")
+        check(bitwise and all(bitwise), f"serve: {name} images differ from render: {bitwise}")
+        check(shared, f"serve: {name}: two configs over train hold two scene copies")
+        check(all(b[2] == b[1] * SERVE_MAX_BATCH - b[0] for b in buckets.values())
+              and summary["padded"] == SERVE_MAX_BATCH * summary["batches"] - len(load),
+              f"serve: {name} padded lanes {buckets}")
+        if not realtime:
+            # Closed loop: each signature's n requests make ceil(n / 4)
+            # dispatches and pad the last to 4.
+            want = {k: (n, -(-n // SERVE_MAX_BATCH), -n % SERVE_MAX_BATCH)
+                    for k, n in want_sig.items()}
+            check({k: b[:3] for k, b in buckets.items()} == want,
+                  f"serve: closed-loop buckets {buckets} != the scheduler's {want}")
+        check(launches[name]["bitmask_gen"] == gstg_lanes
+              and launches[name]["raster_group_fused"] == gstg_lanes
+              and launches[name]["raster_tile"] == tile_lanes,
+              f"serve: {name} launched {launches[name]} for {gstg_lanes} gstg and "
+              f"{tile_lanes} tile_baseline lanes")
+
+    # -- residency: three scenes, a budget that holds the two largest ----------
+    def round_robin():
+        return [(0.0, RenderRequest(i, SERVE_SCENES[i % 3], cams[SERVE_SCENES[i % 3]][0], cfg))
+                for i in range(RESIDENCY_REQUESTS)]
+
+    with RenderServer(scenes, device=dev, max_batch=1, max_wait=0.0) as plain:
+        cost = {sid: (lambda st: st["scene_mb_per_device"] + st["feature_mb_per_device"])(
+            plain.commit(sid, cfg).stats()) for sid in SERVE_SCENES}
+        mem_all_resident = mem_gb()
+        unbudgeted = plain.run(round_robin(), realtime=False)
+    largest = sorted(cost.values())[1:]
+    budget = sum(largest) + 0.5 * min(cost.values())
+    sync()
+    mem_none = mem_gb()
+    tracer = Tracer(enabled=True)
+    prev = set_tracer(tracer)
+    c0 = counters()
+    try:
+        with RenderServer(scenes, device=dev, max_batch=1, max_wait=0.0,
+                          device_budget_mb=budget) as server:
+            for sid in SERVE_SCENES:
+                server.commit(sid, cfg)
+            sync()
+            mem_committed = mem_gb()
+            paged = server.run(round_robin(), realtime=False)
+            sync()
+            mem_after = mem_gb()
+            res_stats = server.residency.stats()
+            resident = sorted(server.resident_scene_ids)
+        res_counters = delta(c0)
+        doc = tracer.chrome_trace()
+    finally:
+        set_tracer(prev)
+    page_ins = [{"entry": e.args["entry"], "ms": e.duration_s * 1e3,
+                 "gb_per_s": e.args["bytes"] / max(e.duration_s, 1e-12) / 1e9,
+                 "bytes": e.args["bytes"]}
+                for e in tracer.events() if e.name == "residency/page_in"]
+    res_errors = validate_chrome_trace(doc) + validate_residency_trace(doc, res_counters)
+    res_bitwise = [bool(torch.equal(paged[i].image, unbudgeted[i].image))
+                   for i in range(RESIDENCY_REQUESTS)] if len(paged) == len(unbudgeted) else []
+    emit({"phase": "serve", "nvidia_smi": smi, "width": width, "height": height,
+          "scenes": {k: s.num_gaussians for k, s in scenes.items()}, "config": CFG_KW,
+          "stateless": stateless, "overflow": overflow})
+    check(sum(largest) < budget < sum(cost.values()),
+          f"serve: residency budget {budget} does not hold two and refuse three {cost}")
+    check(res_bitwise and all(res_bitwise),
+          f"serve: residency images differ from the unbudgeted server's: {res_bitwise}")
+    check(res_stats["evictions"] > 0, f"serve: no eviction under the budget: {res_stats}")
+    check(not res_errors, f"serve: residency trace: {res_errors[:3]}")
+
+    # -- streams: one stream over train, an orbit lapped, then a dolly ---------
+    spec = PAPER_SCENES["train"]
+    orbit = orbit_cameras(ORBIT_POSES, math.hypot(spec.extent * 0.35, spec.extent * 1.5),
+                          width, height, fov_x_deg=62.0)
+    base = cams["train"][0]
+    t0_dolly = (np.round(np.asarray(base.t, np.float64) * 4) / 4).astype(np.float32)
+    dolly = [dataclasses.replace(base, t=t0_dolly + np.float32(i) * np.array(
+        [0.0, 0.0, DOLLY_STEP], np.float32)) for i in range(DOLLY_FRAMES)]
+    path = [orbit[i % ORBIT_POSES] for i in range(ORBIT_FRAMES)] + dolly
+    tracer = Tracer(enabled=True)
+    prev = set_tracer(tracer)
+    c0 = counters()
+    frames = []
+    try:
+        with engine.open(scenes["train"], cfg, device=dev) as h, h.open_stream() as stream:
+            for i, c in enumerate(path):
+                idle = stream.wait_spec_idle(timeout=120)
+                before = stream.stats()
+                bgm = build.LAUNCHES["bitmask_gen"]
+                t = time.perf_counter()
+                out = stream.render(c)
+                sync()
+                ms = (time.perf_counter() - t) * 1e3
+                after = stream.stats()
+                frames.append({"ms": ms, "hit": after["hits"] > before["hits"],
+                               "spec_hit": after["spec_hits"] > before["spec_hits"],
+                               "bgm_launches": build.LAUNCHES["bitmask_gen"] - bgm,
+                               "idle_before": idle,
+                               "bitwise": bool(torch.equal(out.image, h.render(c).image))})
+                del out
+            stream.wait_spec_idle(timeout=120)
+            cache_mb = h.frontend_cache_mb()
+            entry = h._res_entry
+            cost_gap = entry.cost_mb() - (entry.static_mb + cache_mb)
+            st = stream.stats()
+            stream_counters = delta(c0)
+            doc = tracer.chrome_trace()
+            verifies = sum(1 for e in tracer.events() if e.name == "spec/verify")
+            # Hit against miss without speculation: a synchronize after a
+            # frame would also wait for the frontends the worker queues.
+            quiet = h.open_stream(speculate=False)
+            timed = []
+            for c in orbit[:ORBIT_POSES // 2] * 2:
+                t = time.perf_counter()
+                quiet.render(c)
+                sync()
+                timed.append((time.perf_counter() - t) * 1e3)
+            quiet.close()
+    finally:
+        set_tracer(prev)
+    stream_errors = validate_chrome_trace(doc) + validate_stream_trace(doc, stream_counters)
+    lap2_hits = sum(f["hit"] for f in frames[ORBIT_POSES:ORBIT_FRAMES])
+    dolly_spec_hits = sum(f["spec_hit"] for f in frames[ORBIT_FRAMES:])
+    miss_ms, hit_ms = timed[:ORBIT_POSES // 2], timed[ORBIT_POSES // 2:]
+    del scenes, refs, unbudgeted, paged
+    sync()
+
+    # -- the serve CLI in subprocesses ------------------------------------------
+    # A budget that holds one of the CLI's two scenes (parameters + features).
+    per_gaussian = (pytree_bytes(scene_like_paper("train", 8, device="cpu")) / 8
+                    + projected_bytes_per_gaussian())
+    cli = run_serve_cli(dev, cli_gaussians, width, height,
+                        budget_mb=1.5 * cli_gaussians * per_gaussian / 2**20)
+    cli_checks = {}
+    for name, r in cli.items():
+        doc, snap = r.pop("trace"), r.pop("metrics")
+        errs = (["no trace or metrics written"] if doc is None or snap is None else
+                validate_chrome_trace(doc) + validate_residency_trace(doc, snap["counters"])
+                + validate_stream_trace(doc, snap["counters"]))
+        c = (snap or {}).get("counters", {})
+        cli_checks[name] = {"errors": errs[:5], "completed": (doc or {}).get(
+            "summary", {}).get("completed"), "evictions": c.get("residency.evictions_total", 0),
+            "stream_hits": c.get("stream.hits_total", 0)}
+
+    emit({"phase": "serve", "check": "residency", "nvidia_smi": smi,
+          "entry_mb": cost, "budget_mb": budget, "stats": res_stats,
+          "resident_after": resident, "bitwise_vs_unbudgeted": res_bitwise,
+          "page_ins": page_ins, "trace_errors": res_errors[:5],
+          "memory_allocated_gb": {"three_resident_unbudgeted": mem_all_resident,
+                                  "none_committed": mem_none,
+                                  "budgeted_after_commits": mem_committed,
+                                  "budgeted_after_run": mem_after}})
+    emit({"phase": "serve", "check": "stream", "nvidia_smi": smi, "frames": len(frames),
+          "orbit_lap2_hits": lap2_hits, "dolly_spec_hits": dolly_spec_hits,
+          "stats": {k: v for k, v in st.items() if k != "cache"},
+          "spec_verify_spans": verifies, "frontend_cache_mb": cache_mb,
+          "entry_cost_gap_mb": cost_gap,
+          "hit_frame_ms_median": statistics.median(hit_ms),
+          "miss_frame_ms_median": statistics.median(miss_ms),
+          "hit_frame_ms": hit_ms, "miss_frame_ms": miss_ms,
+          "frame_ms_with_speculation": [round(f["ms"], 3) for f in frames],
+          "hits": [f["hit"] for f in frames], "trace_errors": stream_errors[:5]})
+    emit({"phase": "serve", "check": "cli", "runs": cli, "cross_checks": cli_checks,
+          "phase_s": time.perf_counter() - t_phase})
+    check(all(f["bitwise"] for f in frames),
+          f"serve: stream frames differ from render: {[f['bitwise'] for f in frames]}")
+    check(lap2_hits >= 8, f"serve: {lap2_hits} exact hits on the orbit's second lap")
+    check(dolly_spec_hits >= 1, "serve: no speculative hit on the dolly")
+    check(all(f["idle_before"] for f in frames), "serve: the speculation worker never idled")
+    check(verifies == st["frames"] == stream_counters.get("stream.frames_total"),
+          f"serve: {verifies} spec/verify spans for {st['frames']} frames")
+    check(all(f["bgm_launches"] == 1 for f in frames),
+          f"serve: stream frames launched the BGM {[f['bgm_launches'] for f in frames]}")
+    check(cache_mb > 0 and abs(cost_gap) < 1e-6,
+          f"serve: frontend cache {cache_mb} MB, entry cost gap {cost_gap}")
+    check(not stream_errors, f"serve: stream trace: {stream_errors[:3]}")
+    for name, r in cli.items():
+        check(r["returncode"] == 0, f"serve: the {name} CLI exited {r['returncode']}: "
+                                    f"{r['stderr_tail'][-500:]}")
+        check(not cli_checks[name]["errors"],
+              f"serve: the {name} CLI trace: {cli_checks[name]['errors'][:3]}")
+    check(cli_checks["stateless"]["evictions"] > 0, "serve: the CLI paged nothing")
+    check(cli_checks["stream"]["stream_hits"] > 0, "serve: the CLI stream never hit")
+    return launches["realtime"]
+
+
+def submit_breakdown(events) -> dict:
+    """The handle's request spans of one set of submits, in ms per request
+    (request order): queue (enqueue to bucket), batch wait (bucket to
+    dispatch: the scheduler's hold and the worker's 10 ms poll), device
+    (dispatch to the results on the host: render_batch and the host copy
+    of the stacked lanes) and resolve; and the worker's engine/dispatch."""
+    phases = {"request/queue": "queue_ms", "request/batch_wait": "batch_wait_ms",
+              "request/device": "device_and_copy_ms", "request/resolve": "resolve_ms",
+              "request": "total_ms"}
+    out = {v: {} for v in phases.values()}
+    for e in events:
+        if e.category == "request" and e.name in phases:
+            out[phases[e.name]][e.args["request_id"]] = e.duration_s * 1e3
+    out = {k: [v[r] for r in sorted(v, key=lambda r: int(r.split("#")[1]))]
+           for k, v in out.items()}
+    out["dispatch_ms"] = [e.duration_s * 1e3 for e in events if e.name == "engine/dispatch"]
+    return out
+
+
 def stage_breakdown(events) -> dict:
     """The tracer's stage spans frame by frame: each ``stage/render``
     umbrella and the stage spans on its lane inside it. Returns each stage
@@ -814,6 +1220,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     from repro_torch.core.pipeline import render_frontend
     from repro_torch.core.stages import get_backend
     from repro_torch.kernels import ops
+    from repro_torch.obs import Tracer, get_tracer, set_tracer
     from repro_torch.kernels.bitmask_gen import (
         KERNEL_METHODS,
         bitmask_kernel,
@@ -1288,14 +1695,8 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     del proj, pairs, table, masks, comp
 
     # -- batch: render_batch and submit on four cameras near the main one ----
-    radius = math.hypot(spec.extent * 0.35, spec.extent * 1.5)
-    elev = math.atan2(spec.extent * 0.35, spec.extent * 1.5)
-    cams = [cam]                             # the main camera, then three beside it
-    for deg in BATCH_AZIMUTHS_DEG[1:]:
-        az = math.radians(deg)
-        eye = (radius * math.cos(elev) * math.sin(az), radius * math.sin(elev),
-               radius * math.cos(elev) * math.cos(az))
-        cams.append(make_camera(eye, (0, 0, 0), width, height, fov_x_deg=62.0))
+    # The main camera, then three beside it.
+    cams = eval_cameras(spec.extent, BATCH_AZIMUTHS_DEG, width, height)
     with engine.open(scene, cfg, device=dev, max_batch=len(cams), max_wait=60.0) as handle:
         singles = [handle.render(c) for c in cams]
         sync()
@@ -1306,11 +1707,24 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
         batch_ms = (time.perf_counter() - t) * 1e3
         batch_launches = dict(build.LAUNCHES)
         misses = handle.cache_info()["misses"]
-        build.reset_launches()
+        # The host copy the submit worker makes of the stacked lanes, alone.
         t = time.perf_counter()
-        futs = [handle.submit(c) for c in cams]
-        results = [f.result(timeout=300) for f in futs]
-        submit_ms = (time.perf_counter() - t) * 1e3
+        batch.map(torch.Tensor.cpu)
+        host_copy_ms = (time.perf_counter() - t) * 1e3
+        build.reset_launches()
+        # The submits' own request spans (queue, batch wait, device + host
+        # copy, resolve), on a tracer of their own.
+        prev_tracer = set_tracer(Tracer(enabled=True))
+        try:
+            t = time.perf_counter()
+            futs = [handle.submit(cams[0])]
+            first_submit_ms = (time.perf_counter() - t) * 1e3   # starts the worker
+            futs += [handle.submit(c) for c in cams[1:]]
+            results = [f.result(timeout=300) for f in futs]
+            submit_ms = (time.perf_counter() - t) * 1e3
+            submit_spans = submit_breakdown(get_tracer().events())
+        finally:
+            set_tracer(prev_tracer)
         submit_launches = dict(build.LAUNCHES)
         hstats = handle.stats()
         misses_after = handle.cache_info()["misses"]
@@ -1331,6 +1745,8 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
           "lanes_bitwise_vs_render": lane_equal, "submits_bitwise_vs_lanes": submit_equal,
           "handle_counters": counters, "cache_misses_before_after_submits": [misses, misses_after],
           "batch_ms": batch_ms, "submit_to_result_ms": submit_ms,
+          "submit_breakdown": {"first_submit_call_ms": first_submit_ms,
+                               "host_copy_ms": host_copy_ms, **submit_spans},
           "batch_launches": batch_launches, "submit_launches": submit_launches})
     check(all(lane_equal), f"batch: render_batch lanes differ from render: {lane_equal}")
     check(all(submit_equal), f"batch: submit results differ from the lanes: {submit_equal}")
@@ -1415,6 +1831,9 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
                 scene_l, cam_l, base, width, height)
     del scene_l, scene, batch, main_one, d2_frame, base
 
+    # -- serve: the serving tier at the paper's scene sizes -------------------
+    served_launches = serve_phase(dev, on_card, check, smi, width, height)
+
     # -- 6. scene training at the main path's size, outside inference mode ----
     with torch.inference_mode(False):
         train_phase(dev, on_card, check, cam, main_image.clone(), n_main, width, height)
@@ -1442,6 +1861,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name][0], "path": path, "launches": launches,
             "launches_sharded": sharded_launches[name],
+            "launches_served": served_launches[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": k.get("library_ms"),

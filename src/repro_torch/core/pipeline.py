@@ -64,7 +64,7 @@ from repro_torch.core.stages import (
 from repro_torch.obs import get_registry, get_tracer
 from repro_torch.sharding.scene import SceneLike, ShardedScene, shard_scene
 from repro_torch.utils import wide_count_sum
-from repro_torch.utils.misc import fence, not_ported
+from repro_torch.utils.misc import ITEM_AUTOTUNE, fence, not_ported
 
 MODES = ("gstg", "tile_baseline", "group_baseline")
 
@@ -639,4 +639,4 @@ def render_image(
     return engine.default_renderer(scene, cfg).render(cam, background).image
 
 
-frontend_stats = not_ported("frontend_stats", "11: streams, autotune and residency")
+frontend_stats = not_ported("frontend_stats", ITEM_AUTOTUNE)

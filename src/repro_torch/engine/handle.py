@@ -19,20 +19,26 @@ returns a :class:`Renderer`:
     internal queue -> bucketing-scheduler worker thread; a request that
     fails resolves its own future with the exception and the worker lives
     on;
+  * the committed scene lives in a refcounted residency entry
+    (``residency/manager.py``): every render path acquires it there, so a
+    budgeted manager shared by several handles (``residency=``) can page it
+    out and back in, bitwise invisibly, from a host copy of the layout;
+  * ``.open_stream()`` opens a :class:`~repro_torch.engine.stream.StreamRenderer`
+    over the handle: a frontend cache keyed by exact pose plus speculation;
   * the handle owns a per-geometry cache of its render callables,
     registered with ``core.pipeline.register_render_cache`` so
     ``render_cache_info()`` covers it;
-  * ``.close()`` (or the context manager) drains the worker, fails what it
-    never resolved, unregisters the cache and releases the scene and its
-    own scene-layout reference.
+  * ``.close()`` (or the context manager) closes the handle's streams,
+    drains the worker, fails what it never resolved, unregisters the cache
+    and releases its residency entry and its own scene-layout reference.
 
 ``default_renderer(scene, cfg)`` is the module-default handle behind the
 deprecated free functions (``render_jit``, ``render_image``,
 ``render_batch_sharded``), committed on the scene's own device.
 
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: meshes and several devices (queue 1, item 8);
-tile-parameter autotune, paged residency and stream sessions (item 11).
+item: meshes and several devices (queue 1, item 8); tile-parameter autotune
+(item 11).
 """
 from __future__ import annotations
 
@@ -67,6 +73,7 @@ from repro_torch.core.pipeline import (
 from repro_torch.core.projection import projected_bytes_per_gaussian
 from repro_torch.launch.mesh import render_mesh_shards
 from repro_torch.obs import emit_request_spans, get_registry, get_tracer
+from repro_torch.residency import ResidencyManager
 from repro_torch.serving.bucketing import BucketingScheduler, padded_size
 from repro_torch.serving.queue import QueueClosed, RequestQueue
 from repro_torch.serving.sharded import (
@@ -76,18 +83,16 @@ from repro_torch.serving.sharded import (
 )
 from repro_torch.sharding.scene import SceneLike, ShardedScene
 from repro_torch.utils import pytree_bytes, resolve_device
+from repro_torch.utils.misc import ITEM_AUTOTUNE, ITEM_SHARDING
 
 _HANDLE_SEQ = itertools.count()
 _FN_CACHE_MAX = 64          # per-handle cached-renderer bound
-_ITEM_SHARDING = "8: sharding along the gaussian axis"
-_ITEM_STREAMS = "11: streams, residency, autotune"
 # open() options of the JAX handle the port does not take yet -> queue item.
 _UNPORTED_OPTIONS = {
-    "devices": _ITEM_SHARDING,
-    "mesh": _ITEM_SHARDING,
-    "tile_params": _ITEM_STREAMS,
-    "autotune_opts": _ITEM_STREAMS,
-    "residency": _ITEM_STREAMS,
+    "devices": ITEM_SHARDING,
+    "mesh": ITEM_SHARDING,
+    "tile_params": ITEM_AUTOTUNE,
+    "autotune_opts": ITEM_AUTOTUNE,
 }
 
 
@@ -129,6 +134,7 @@ class Renderer:
         max_batch: int = 8,
         max_wait: float = 0.05,
         queue_depth: int = 64,
+        residency: Optional[ResidencyManager] = None,
         clock=time.monotonic,
     ):
         shards = self._resolve_shards(scene, cfg, scene_shards)
@@ -146,34 +152,75 @@ class Renderer:
         self._cfg = cfg
         # Per-device budget model (DESIGN.md §12): the scene parameters at
         # 1/phys plus the per-camera projected features at the padded count
-        # over the feature divisor.
+        # over the feature divisor. An explicit device_budget_mb wins; a
+        # shared residency manager's budget otherwise. The check is per
+        # scene: one that cannot fit alone fails fast, while the aggregate
+        # across scenes is what the residency manager pages against.
+        budget_mb = device_budget_mb
+        if budget_mb is None and residency is not None:
+            budget_mb = residency.budget_mb
         self._scene_mb_per_device = pytree_bytes(scene) / phys / 2**20
         fdiv = self._feature_div(cfg, shards, phys)
         self._feature_mb_per_device = self._feature_mb(scene, shards) / fdiv
         need = self._scene_mb_per_device + self._feature_mb_per_device
-        if device_budget_mb is not None and need > device_budget_mb:
+        if budget_mb is not None and need > budget_mb:
             raise ValueError(
                 f"scene needs {need:.2f} MB on its one device "
                 f"({self._scene_mb_per_device:.2f} MB parameters + "
                 f"{self._feature_mb_per_device:.2f} MB per-camera projected "
-                f"features at N/{fdiv}), over the {device_budget_mb} MB budget — "
+                f"features at N/{fdiv}), over the {budget_mb} MB budget — "
                 f"logical shards on one device divide neither; sharding over "
                 f"several devices is not ported yet (ROADMAP queue 1, item "
-                f"{_ITEM_SHARDING})"
+                f"{ITEM_SHARDING})"
             )
         # What the commit runs ('flat' for a replicated frontend, even
         # though cfg.feature_gather may still read 'auto').
         self._feature_gather = self._resolved_gather(cfg, shards, phys)
         self._phys_shards = phys
+        # Stream sessions, before the commit: the residency entry's dynamic
+        # cost (frontend_cache_mb) may run during the eager page-in below.
+        self._worker_lock = threading.Lock()
+        self._streams: List[Any] = []
+
         # Commit: a plain scene sharded D > 1 ways is staged on the host
         # through the refcounted layout cache (the layout survives until the
-        # last handle over it closes), then moved to the device once.
+        # last handle over it closes), then registered with the residency
+        # manager, which keeps a host copy as its backing store. The eager
+        # acquire below is the commit's one move to the device; under a
+        # budgeted shared manager the scene may later page out and back in.
         staged = scene
         self._layout_ref = None
         if shards > 1 and isinstance(scene, GaussianScene):
             staged = acquire_scene_layout(scene, shards)
             self._layout_ref = (scene, shards)
-        self._scene: Optional[SceneLike] = staged.to(self._device)
+        self._residency = (
+            residency if residency is not None
+            else ResidencyManager(budget_mb=device_budget_mb)
+        )
+        self._res_entry = self._residency.register(
+            (id(scene), shards, self._device),
+            staged,
+            self._device,
+            need,
+            label=f"scene@{id(scene):#x}/D{shards}",
+            source=scene,
+        )
+        # Dynamic cost: the stream sessions' frontend caches, through a
+        # weakref so the shared entry never pins the handle; the last
+        # release drops the entry and every callback with it.
+        self_ref = weakref.ref(self)
+
+        def _dyn_cost(ref=self_ref):
+            h = ref()
+            return h.frontend_cache_mb() if h is not None else 0.0
+
+        self._dyn_cost = _dyn_cost
+        self._res_entry.cost_fns.append(_dyn_cost)
+        # A handle dropped without close() still releases its reference.
+        self._res_finalizer = weakref.finalize(
+            self, self._residency.release, self._res_entry
+        )
+        self._residency.acquire(self._res_entry)
 
         # Per-handle renderer cache, visible through the engine-wide
         # registry through a weakref, so the registry never pins the handle;
@@ -203,7 +250,6 @@ class Renderer:
         self._max_batch = max_batch
         self._queue = RequestQueue(queue_depth, clock=clock)
         self._scheduler = BucketingScheduler(max_batch, max_wait, clock=clock)
-        self._worker_lock = threading.Lock()
         self._worker: Optional[threading.Thread] = None
         self._flush_event = threading.Event()
         self._outstanding: List[Future] = []
@@ -232,6 +278,46 @@ class Renderer:
         """The committed (tile, group, tile_capacity)."""
         return (self._cfg.tile, self._cfg.group, self._cfg.tile_capacity)
 
+    @property
+    def _scene(self) -> Optional[SceneLike]:
+        """The device-resident committed scene, acquired through the
+        residency manager on every use: an LRU touch while resident, a
+        bitwise copy of the host backing after a page-out."""
+        entry = self._res_entry
+        if entry is None:
+            return None
+        return self._residency.acquire(entry)
+
+    @property
+    def committed_scene(self) -> SceneLike:
+        """The device-resident committed scene (paged in if needed).
+        Handles opened through one residency manager on the same (scene,
+        layout, device) share one entry, and so one device copy."""
+        self._check_open()
+        return self._scene
+
+    @property
+    def resident(self) -> bool:
+        """Whether the committed scene is on the device right now (a
+        budgeted shared manager may have paged it out; any render pages it
+        back in)."""
+        entry = self._res_entry
+        return entry is not None and entry.resident
+
+    def prefetch(self) -> bool:
+        """Page the committed scene in ahead of a render (the serving
+        tier's admission-time hook). True when a transfer happened."""
+        self._check_open()
+        return self._residency.prefetch(self._res_entry)
+
+    def frontend_cache_mb(self) -> float:
+        """Device MB held by this handle's stream sessions' frontend caches:
+        memory the static budget model cannot see, charged against the
+        residency budget as the entry's dynamic cost."""
+        with self._worker_lock:
+            streams = list(self._streams)
+        return sum(s.cache_bytes() for s in streams if not s.closed) / 2**20
+
     def stats(self) -> dict:
         """Committed layout + per-handle cache and futures counters. Also
         publishes them as per-handle gauges in the metrics registry
@@ -241,6 +327,8 @@ class Renderer:
         registry.gauge(prefix + "scene_mb_per_device").set(self._scene_mb_per_device)
         registry.gauge(prefix + "feature_mb_per_device").set(self._feature_mb_per_device)
         registry.gauge(prefix + "physical_shards").set(self._phys_shards)
+        frontend_cache_mb = self.frontend_cache_mb()
+        registry.gauge(prefix + "frontend_cache_mb").set(frontend_cache_mb)
         with self._worker_lock:
             counters = dict(self._counters)
         for k, v in counters.items():
@@ -253,6 +341,8 @@ class Renderer:
             "physical_shards": self._phys_shards,
             "scene_mb_per_device": self._scene_mb_per_device,
             "feature_mb_per_device": self._feature_mb_per_device,
+            "frontend_cache_mb": frontend_cache_mb,
+            "resident": self.resident,
             "feature_gather": self._feature_gather,
             "cache": self.cache_info(),
             **counters,
@@ -411,10 +501,27 @@ class Renderer:
             out = out.map(lambda x: x[:orig])
         return out
 
-    def open_stream(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"Renderer.open_stream is not ported yet (ROADMAP queue 1, item {_ITEM_STREAMS})"
+    def open_stream(self, *, cache_frames: int = 32, spec_depth: int = 2,
+                    speculate: bool = True):
+        """Open a :class:`~repro_torch.engine.stream.StreamRenderer` over
+        this handle: an exact-reuse frontend cache (``cache_frames`` poses,
+        LRU) plus a speculation worker (``spec_depth`` pending predictions,
+        drop-oldest; ``speculate=False`` keeps reuse only). :meth:`close`
+        closes it."""
+        self._check_open()
+        from repro_torch.engine.stream import StreamRenderer
+
+        stream = StreamRenderer(
+            self, cache_frames=cache_frames, spec_depth=spec_depth, speculate=speculate,
         )
+        with self._worker_lock:
+            self._streams.append(stream)
+        return stream
+
+    def _forget_stream(self, stream) -> None:
+        with self._worker_lock:
+            if stream in self._streams:
+                self._streams.remove(stream)
 
     # -- futures front-end ---------------------------------------------------
 
@@ -550,11 +657,19 @@ class Renderer:
     # -- lifecycle -----------------------------------------------------------
 
     def close(self) -> None:
-        """Drain the worker, fail the futures it never resolved, drop and
-        unregister the renderer cache, and release the committed scene.
-        Idempotent; the handle is unusable afterwards."""
+        """Close the streams, drain the worker, fail the futures it never
+        resolved, drop and unregister the renderer cache, and release the
+        residency entry (the shared device copy and host backing go when
+        the last handle over them closes). Idempotent; the handle is
+        unusable afterwards."""
         if self._closed:
             return
+        # Streams first: their speculation workers dispatch through this
+        # handle and their caches hold device tensors.
+        with self._worker_lock:
+            streams = list(self._streams)
+        for stream in streams:
+            stream.close()
         self._queue.close()                 # wakes the worker; drains pending
         worker = self._worker
         if worker is not None and worker.is_alive():
@@ -569,7 +684,15 @@ class Renderer:
         unregister_render_cache(self.cache_name)
         get_registry().drop(f"engine.{self.cache_name}.")
         self._cache_clear()
-        self._scene = None
+        # Refcounted: another handle committed on the same (scene, layout,
+        # device) through the same manager keeps the entry.
+        try:
+            self._res_entry.cost_fns.remove(self._dyn_cost)
+        except ValueError:
+            pass
+        if self._res_finalizer.detach():
+            self._residency.release(self._res_entry)
+        self._res_entry = None
         if self._layout_ref is not None:
             # Only this handle's own (scene, D) reference: the cached host
             # layout drops when the last reference goes.
@@ -601,6 +724,7 @@ def open(  # noqa: A001 — the module-level session verb is the API
     max_batch: int = 8,
     max_wait: float = 0.05,
     queue_depth: int = 64,
+    residency: Optional[ResidencyManager] = None,
     clock=time.monotonic,
     **unported,
 ) -> Renderer:
@@ -608,15 +732,21 @@ def open(  # noqa: A001 — the module-level session verb is the API
     another; raises when CUDA is missing) and return the :class:`Renderer`.
 
     * ``device_budget_mb`` — per-device memory cap counting the scene
-      parameters plus the per-camera projected features; an over-budget
-      commit raises.
+      parameters plus the per-camera projected features; a scene over it
+      alone raises.
+    * ``residency`` — a shared :class:`~repro_torch.residency.ResidencyManager`:
+      handles committed through one manager share a device copy per (scene,
+      layout, device) and page in and out against the manager's budget,
+      bitwise invisibly. Without it the handle gets a private manager (no
+      paging unless ``device_budget_mb`` forces it). With both,
+      ``device_budget_mb`` bounds this scene alone.
     * ``max_batch``/``max_wait``/``queue_depth`` — the ``submit()`` futures
       front-end's batching knobs; ``clock`` is the scheduler's clock.
     * ``scene_shards`` — ``'auto'`` takes D from ``cfg.scene_shards``, or
       from a pre-sharded ``ShardedScene``; an int D commits D logical shards
       on the one device (``feature_gather='auto'`` runs ``'index'``).
-    * ``devices``, ``mesh``, ``tile_params``, ``autotune_opts`` and
-      ``residency`` raise ``NotImplementedError`` naming their ROADMAP item.
+    * ``devices``, ``mesh``, ``tile_params`` and ``autotune_opts`` raise
+      ``NotImplementedError`` naming their ROADMAP item.
     """
     for name in unported:
         if name not in _UNPORTED_OPTIONS:
@@ -628,7 +758,8 @@ def open(  # noqa: A001 — the module-level session verb is the API
     return Renderer(
         scene, cfg, device=device, scene_shards=scene_shards,
         device_budget_mb=device_budget_mb,
-        max_batch=max_batch, max_wait=max_wait, queue_depth=queue_depth, clock=clock,
+        max_batch=max_batch, max_wait=max_wait, queue_depth=queue_depth,
+        residency=residency, clock=clock,
     )
 
 
@@ -653,7 +784,7 @@ def default_renderer(scene: SceneLike, cfg: RenderConfig, *, mesh=None) -> Rende
     if mesh is not None:
         raise NotImplementedError(
             f"default_renderer(mesh=...) is not ported yet (ROADMAP queue 1, item "
-            f"{_ITEM_SHARDING})"
+            f"{ITEM_SHARDING})"
         )
     key = (id(scene), cfg, scene.device)
     handle = _default_handles.get(key)

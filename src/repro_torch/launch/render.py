@@ -35,6 +35,7 @@ from repro_torch.configs import scene_and_camera
 from repro_torch.core.cost_model import GSTG_ASIC, estimate
 from repro_torch.core.pipeline import RenderConfig, render_cache_info
 from repro_torch.obs import get_tracer, trace_env_enabled
+from repro_torch.utils.misc import ITEM_AUTOTUNE
 
 
 def _stage_table(events) -> str:
@@ -94,8 +95,7 @@ def main(argv=None) -> None:
     args = _parser().parse_args(argv)
     if args.autotune:
         raise NotImplementedError(
-            "--autotune is not ported yet (ROADMAP queue 1, item 11: streams, "
-            "residency, autotune)"
+            f"--autotune is not ported yet (ROADMAP queue 1, item {ITEM_AUTOTUNE})"
         )
     backend = "cuda" if args.use_kernels else args.backend
     timing = trace_env_enabled() or bool(args.trace_json)

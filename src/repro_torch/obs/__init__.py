@@ -5,7 +5,8 @@ Pure Python: importing ``repro_torch.obs`` imports neither torch nor jax.
 
   * ``repro_torch.obs.trace`` — a thread-safe :class:`Tracer` ring buffer of
     complete spans with Chrome trace-event JSON export (Perfetto-loadable)
-    and :func:`validate_chrome_trace`.
+    and :func:`validate_chrome_trace`, with the residency and stream
+    span-against-counter cross-checks beside it.
   * ``repro_torch.obs.metrics`` — a :class:`MetricsRegistry` of named
     counters/gauges/reservoir histograms behind the port's stats surfaces
     (``Renderer.stats()``, the render-cache registry), exported as a
@@ -25,6 +26,8 @@ from repro_torch.obs.trace import (
     trace_env_enabled,
     trace_span,
     validate_chrome_trace,
+    validate_residency_trace,
+    validate_stream_trace,
 )
 from repro_torch.obs.metrics import (
     Counter,
@@ -46,6 +49,8 @@ __all__ = [
     "trace_env_enabled",
     "trace_span",
     "validate_chrome_trace",
+    "validate_residency_trace",
+    "validate_stream_trace",
     "Counter",
     "Gauge",
     "Histogram",

@@ -21,11 +21,12 @@ requests with (``RequestQueue``/``RenderServer`` defaults), so request
 lifecycle stamps and stage spans line up on one timeline without any
 cross-clock alignment.
 
-:func:`validate_chrome_trace` is the single schema checker shared by the
-test suite and the CI validator (``scripts/validate_trace.py``): every
-event carries name/ph/ts/dur/pid/tid, and within each (pid, tid) lane the
-X events must nest like a call stack (touching siblings allowed, partial
-overlap is a violation).
+:func:`validate_chrome_trace` is the schema checker the tests and
+chip_smoke share: every event carries name/ph/ts/dur/pid/tid, and within
+each (pid, tid) lane the X events must nest like a call stack (touching
+siblings allowed, partial overlap is a violation).
+:func:`validate_residency_trace` and :func:`validate_stream_trace` hold the
+residency and stream spans to their counters.
 """
 from __future__ import annotations
 
@@ -305,6 +306,75 @@ def validate_chrome_trace(doc: Any) -> List[str]:
                     f"partially overlaps enclosing {stack[-1][1]!r} "
                     f"(ends {stack[-1][0]:.1f}us)")
             stack.append((end, name))
+    return errs
+
+
+def _complete_events(doc: Any) -> List[dict]:
+    return [e for e in doc.get("traceEvents", [])
+            if isinstance(e, dict) and e.get("ph") == "X"]
+
+
+def validate_residency_trace(doc: Any, counters: Dict[str, Any]) -> List[str]:
+    """Residency paging cross-check (the port of ``scripts/validate_trace.py``'s
+    residency checks): every page-in/-out records its ``residency/*`` span
+    and bumps its ``residency.*`` counter in one critical section, so span
+    counts must equal the counters of a metrics snapshot (``counters`` is
+    its ``"counters"`` map), and no eviction may lack its page-out. A run
+    that never paged (no residency counter, no residency span) passes.
+    Returns the violations (empty = consistent)."""
+    xs = _complete_events(doc)
+    errs: List[str] = []
+    if "residency.page_ins_total" not in counters and not any(
+        e.get("cat") == "residency" for e in xs
+    ):
+        return errs
+    for name, counter in (
+        ("residency/page_in", "residency.page_ins_total"),
+        ("residency/page_out", "residency.page_outs_total"),
+    ):
+        n_span = sum(1 for e in xs if e.get("name") == name)
+        n_counter = counters.get(counter, 0)
+        if n_span != n_counter:
+            errs.append(
+                f"{name} spans = {n_span} but counters[{counter!r}] = "
+                f"{n_counter}: a page transition lost its span or double-counted")
+    evictions = counters.get("residency.evictions_total", 0)
+    page_outs = counters.get("residency.page_outs_total", 0)
+    if evictions > page_outs:
+        errs.append(
+            f"counters['residency.evictions_total'] = {evictions} exceeds "
+            f"page_outs = {page_outs}: an eviction that never paged out")
+    return errs
+
+
+def validate_stream_trace(doc: Any, counters: Dict[str, Any]) -> List[str]:
+    """Stream/speculation cross-check (the port of ``scripts/validate_trace.py``'s
+    stream checks): every stream frame records exactly one ``spec/verify``
+    span, so their count must equal the stream hit + miss counters and
+    ``stream.frames_total``; every speculative frontend records one
+    ``spec/run`` span, matching ``spec.runs_total``. A run that served no
+    stream passes. Returns the violations (empty = consistent)."""
+    xs = _complete_events(doc)
+    errs: List[str] = []
+    stream_frames = counters.get("stream.frames_total")
+    if stream_frames is None and not any(e.get("cat") == "spec" for e in xs):
+        return errs
+    hits = counters.get("stream.hits_total", 0)
+    misses = counters.get("stream.misses_total", 0)
+    verifies = sum(1 for e in xs if e.get("name") == "spec/verify")
+    if verifies != hits + misses:
+        errs.append(
+            f"spec/verify spans = {verifies} but stream hit+miss counters total "
+            f"{hits + misses} (hits={hits}, misses={misses})")
+    if stream_frames != hits + misses:
+        errs.append(
+            f"counters['stream.frames_total'] = {stream_frames} but hit+miss "
+            f"counters total {hits + misses}")
+    spec_runs = counters.get("spec.runs_total", 0)
+    run_spans = sum(1 for e in xs if e.get("name") == "spec/run")
+    if run_spans != spec_runs:
+        errs.append(
+            f"spec/run spans = {run_spans} but counters['spec.runs_total'] = {spec_runs}")
     return errs
 
 

@@ -50,6 +50,23 @@ def pytree_bytes(tree) -> int:
     return sum(pytree_bytes(x) for x in items)
 
 
+def tree_map(fn, tree):
+    """``tree`` with ``fn`` applied to every tensor: a tensor, or a
+    dataclass, mapping, list or tuple of them (nested). Other leaves (a
+    shard count, a name) are kept as they are."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{
+            f.name: tree_map(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)
+        })
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, x) for x in tree)
+    return tree
+
+
 def tree_device(tree) -> Optional[torch.device]:
     """The device of the first tensor in ``tree`` (a tensor, or a dataclass,
     list or tuple of them, nested), or None when it holds no tensor."""
@@ -74,6 +91,11 @@ def fence(tree) -> None:
     dev = tree_device(tree)
     if dev is not None and dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+# ROADMAP queue 1 items whose entry points the port does not take yet.
+ITEM_SHARDING = "8: sharding along the gaussian axis"
+ITEM_AUTOTUNE = "11: tile-parameter autotune"
 
 
 def not_ported(name: str, item: str):

@@ -524,3 +524,41 @@ def test_timed_render_bitwise_on_the_card(cuda_device, shards):
     assert names == stages | ({"stage/merge"} if shards > 1 else set())
     assert errs == []
     assert launches["bitmask_gen"] == 1 and launches["raster_group_fused"] == 1, launches
+
+
+def test_server_with_eviction_bitwise_on_the_card(cuda_device):
+    """A RenderServer on the card over two scenes whose budget holds one:
+    every image bitwise the handle's render of its camera, at least one
+    eviction, and every image bitwise an unbudgeted server's; each gstg
+    lane (padded lanes too) launches the BGM and the fused RM once."""
+    from repro_torch.serving import RenderRequest, RenderServer
+
+    scene, _, _, _, _, _ = _case()
+    other = random_scene(2000, extent=3.0, generator=torch.Generator().manual_seed(5))
+    scenes = {"a": scene.to(cuda_device), "b": other.to(cuda_device)}
+    cfg = dataclasses.replace(CFG, backend="cuda")
+    cams = camera.orbit_cameras(3, 5.0, W, H)
+
+    def load():
+        return [(0.0, RenderRequest(i, "ab"[i % 2], cams[i % 3], cfg)) for i in range(6)]
+
+    with engine.open(scenes["a"], cfg, device=cuda_device) as probe:
+        st = probe.stats()
+        budget = 1.5 * (st["scene_mb_per_device"] + st["feature_mb_per_device"])
+    build.reset_launches()
+    with RenderServer(scenes, device=cuda_device, max_batch=2, max_wait=0.0,
+                      device_budget_mb=budget) as server:
+        got = server.run(load(), realtime=False)     # host copies: synchronized
+        launches = dict(build.LAUNCHES)
+        summary = server.stats.summary()
+        assert server.residency.stats()["evictions"] >= 1
+    with RenderServer(scenes, device=cuda_device, max_batch=2, max_wait=0.0) as plain:
+        want = plain.run(load(), realtime=False)
+        assert plain.residency.stats()["evictions"] == 0
+    lanes = summary["completed"] + summary["padded"]
+    assert launches["bitmask_gen"] == lanes and launches["raster_group_fused"] == lanes
+    for _, req in load():
+        with engine.open(scenes[req.scene_id], cfg, device=cuda_device) as h:
+            one = h.render(req.camera).image.cpu()
+        assert torch.equal(got[req.request_id].image, one), req.request_id
+        assert torch.equal(want[req.request_id].image, one), req.request_id

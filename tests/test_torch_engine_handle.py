@@ -9,7 +9,8 @@ at 64x64:
   * the futures contract: a failing request resolves its own future and the
     next submit is bitwise equal to render; cancelled futures, worker
     crashes and close() terminate every future;
-  * the unported options raise, naming their ROADMAP item;
+  * the unported options raise, naming their ROADMAP item; residency and
+    streams, once unported, work;
   * the serving queue and bucketing scheduler the handle is built on.
 
 Every partial bucket is forced out with flush(); no test waits out
@@ -477,22 +478,43 @@ def test_close_fails_futures_the_worker_never_resolved(scene, cfg):
 @pytest.mark.parametrize("option,item", [
     (dict(devices=2), "item 8"), (dict(mesh=object()), "item 8"),
     (dict(tile_params="auto"), "item 11"),
-    (dict(autotune_opts={}), "item 11"), (dict(residency=object()), "item 11"),
+    (dict(autotune_opts={}), "item 11"),
+    pytest.param(dict(residency="shared"), None, id="option4-ported"),
 ])
 def test_unported_open_options_raise(scene, cfg, option, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _open(scene, cfg, **option)
+    """The multi-device options raise naming item 8 and the autotune ones
+    item 11. ``residency=`` (once unported, item 11) commits through the
+    shared manager: two handles over one scene share one entry and one
+    device copy, and render bitwise like a private handle."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            _open(scene, cfg, **option)
+        return
+    from repro_torch.residency import ResidencyManager
+
+    mgr = ResidencyManager()
+    cam = _cam()
+    base = dataclasses.replace(cfg, mode="tile_baseline")
+    with _open(scene, cfg, residency=mgr) as a, _open(scene, base, residency=mgr) as b, \
+            _open(scene, cfg) as private:
+        assert a._res_entry is b._res_entry and mgr.stats()["entries"] == 1
+        assert a.committed_scene.means3d is b.committed_scene.means3d
+        _assert_bitwise(a.render(cam), private.render(cam), "shared manager")
+    assert mgr.stats()["entries"] == 0
 
 
 def test_unported_entry_points_raise(scene, cfg):
-    """open_stream still raises naming item 11; the default handle and the
-    shims (item 6, now ported) raise naming item 8 for a mesh."""
+    """open_stream (once unported, item 11) opens a stream whose frames are
+    bitwise the handle's render; the default handle and the shims raise
+    naming item 8 for a mesh."""
     from repro_torch.serving.sharded import render_batch_sharded
 
     cam = _cam()
     with _open(scene, cfg) as r:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            r.open_stream()
+        with r.open_stream(speculate=False) as s:
+            _assert_bitwise(s.render(cam), r.render(cam), "stream frame")
+            _assert_bitwise(s.render(cam), r.render(cam), "stream hit")
+            assert (s.stats()["hits"], s.stats()["misses"]) == (1, 1)
     with pytest.raises(NotImplementedError, match="item 8"):
         engine.default_renderer(scene, cfg, mesh=object())
     with pytest.warns(DeprecationWarning, match="render_batch_sharded"):

@@ -156,8 +156,18 @@ def test_engine_open_on_cpu_equals_render(small_scene):
         assert r.stats()["device"] == "cpu"
     with pytest.raises(RuntimeError):
         r.render(cam)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.open(small_scene, cfg, device="cpu", residency=object())
+    # residency= (once unported) commits through a shared manager: a second
+    # commit over a budget that holds one evicts the first, which renders
+    # bitwise after its page-in.
+    from repro_torch.residency import ResidencyManager
+
+    mgr = ResidencyManager()
+    with engine.open(small_scene, cfg, device="cpu", residency=mgr) as r:
+        st = r.stats()
+        mgr.budget_mb = 1.5 * (st["scene_mb_per_device"] + st["feature_mb_per_device"])
+        with engine.open(small_scene, cfg, device="cpu", scene_shards=2, residency=mgr):
+            assert not r.resident and mgr.stats()["evictions"] == 1
+            assert torch.equal(r.render(cam, background=bg).image, want.image) and r.resident
 
 
 @pytest.mark.parametrize("backend", ["reference", "cuda"])
@@ -288,7 +298,9 @@ def test_import_leaves_jax_and_repro_out():
         "from repro_torch.sharding import ShardedScene\n"
         "import repro_torch.optim, repro_torch.core.train, repro_torch.core.metrics\n"
         "import repro_torch.core.cost_model, repro_torch.examples.train_gaussians\n"
-        "import repro_torch.launch.render\n"
+        "import repro_torch.launch.render, repro_torch.launch.render_serve\n"
+        "import repro_torch.residency, repro_torch.engine.stream\n"
+        "import repro_torch.serving.stats, repro_torch.serving.server\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
     )
