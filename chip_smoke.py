@@ -131,6 +131,29 @@ line each:
                 without speculation (8 orbit poses, twice). Then the serve CLI
                 in two subprocesses (stateless under a budget, one stream;
                 --parity-check): exit 0, traces that pass the cross-checks.
+     autotune — tile-parameter autotune (repro_torch.autotune) on the main
+                frame, its cache in a temporary file: the main triple (16,
+                64, 2048) probed with frontend_stats at spans 6, 8, 12, 16
+                (each probe's cut lists and max_memory_allocated), the
+                smallest uncut span tuned (else the lossless frame), base
+                group_capacity 16,384; a sweep over tiles (8, 16, 32) x
+                factors (2, 4, 8) x capacities (2048, 4096), every feasible
+                point measured (median of 3 after a warm-up, no cache
+                written), its trajectory and the cost model's ranking
+                beside the card's; gstg past 32 member tiles refused with
+                its reason and no stats pass; autotune(top_k=3,
+                verify=True), whose winner is its fastest survivor; then
+                engine.open(tile_params='auto') bitwise (image and
+                counters) an open of the winner fixed, a second 'auto' open
+                that hits the cache with no stats pass, after close no
+                entry in memory, the file kept, and a re-open from the
+                file; RenderServer(autotune=True) serving two requests
+                bitwise like render at the tuned triple; the one-shot CLI
+                with --autotune in a subprocess (3,000 gaussians,
+                256x192). The BGM and the fused RM launch once a measured
+                frame, the BGM also once a stats pass. Prints the winner's
+                frame time beside the main triple's, the search's wall
+                time cold and on a cache hit, and the phase's peak memory.
   6. train    — scene training (core/train.py) on the main path's scene,
                 camera and config, backend reference, outside inference
                 mode: the main path's image is the target, the scene is
@@ -149,7 +172,8 @@ line each:
                 gradient max-abs within 1e-4 of its largest magnitude (the
                 CPU tests' bounds against the JAX package).
   7. kernels  — every ported kernel: launches on its path, on the sharded
-                path and in the serve phase's realtime run, error, times,
+                path, in the serve phase's realtime run and over the
+                autotune phase, error, times,
                 bound, library time (torch.sort + gather for the bitonic
                 sort). The train phase launches none of them.
 
@@ -232,6 +256,18 @@ ORBIT_POSES, ORBIT_FRAMES, DOLLY_FRAMES, DOLLY_STEP = 16, 24, 8, 0.25
 SERVE_CLI_GAUSSIANS = 200_000
 LOSS_RTOL = 1e-4
 GRAD_TOL = 1e-4           # max-abs difference over the field's largest magnitude
+# autotune: the main frame's triple probed at rising spans (the smallest with
+# no cut list is tuned), over a grid that holds that triple, feasible points
+# at another tile and another group, and gstg points past 32 member tiles.
+# The base group capacity holds group-128 lists, and capacity 4,096 the
+# 32-px tile lists (the sweep line's list_max gives their longest).
+AUTOTUNE_SPANS = (6, 8, 12, 16)
+AUTOTUNE_GROUP_CAPACITY = 16384
+AUTOTUNE_GRID = dict(tiles=(8, 16, 32), group_factors=(2, 4, 8), capacities=(2048, 4096))
+AUTOTUNE_REPS = 3
+AUTOTUNE_TOP_K = 3
+AUTOTUNE_CLI = ["--gaussians", "3000", "--width", "256", "--height", "192",
+                "--capacity", "512"]
 
 
 def eval_cameras(extent: float, azimuths_deg, width: int, height: int) -> list:
@@ -940,6 +976,299 @@ def serve_phase(dev, on_card, check, smi, width: int, height: int, gaussians=Non
     check(cli_checks["stateless"]["evictions"] > 0, "serve: the CLI paged nothing")
     check(cli_checks["stream"]["stream_hits"] > 0, "serve: the CLI stream never hit")
     return launches["realtime"]
+
+
+def autotune_phase(dev, on_card, check, smi, width: int, height: int,
+                   gaussians: int = MAIN_GAUSSIANS, lossless_gaussians: int = LOSSLESS_GAUSSIANS,
+                   spans=AUTOTUNE_SPANS, grid=AUTOTUNE_GRID,
+                   group_capacity: int = AUTOTUNE_GROUP_CAPACITY) -> dict:
+    """Tile-parameter autotune on the main frame (``gaussians``, ``spans``,
+    ``grid`` and ``group_capacity`` shrink it for a rehearsal on the host),
+    with the port's autotune cache in a temporary file. Returns each
+    kernel's launches over the phase."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.autotune import (
+        Candidate,
+        autotune,
+        autotune_signature,
+        config_for,
+        stats_pass,
+        sweep,
+    )
+    from repro_torch.autotune.cache import lookup
+    from repro_torch.configs import PAPER_SCENES, scene_and_camera
+    from repro_torch.core import (
+        GridSpec,
+        RenderConfig,
+        make_camera,
+        render_cache_clear,
+        render_cache_info,
+        render_frontend,
+        scene_like_paper,
+    )
+    from repro_torch.core.stages import get_backend, mask_tile_lengths
+    from repro_torch.kernels import build
+    from repro_torch.serving import RenderRequest, RenderServer
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+
+    def wall(fn):
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t
+
+    def memory_entries():
+        return render_cache_info()["autotune"]["currsize"]
+
+    def list_max(scene, cam, cfg):
+        """The frame's longest group list and longest tile list (the BGM
+        launches once)."""
+        front = render_frontend(scene, cam, cfg)
+        grid = GridSpec(width, height, cfg.tile, cfg.group, cfg.span)
+        masks = get_backend("cuda").bitmasks(front.proj, front.table, grid,
+                                              cfg.boundary_tile, chunk=cfg.chunk)
+        return [int(front.table.lengths.max()),
+                int(mask_tile_lengths(front.table, masks, grid).max())]
+
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.TemporaryDirectory()
+    cache_file = Path(tmp.name) / "autotune_cache_torch.json"
+    prev_env = os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(cache_file)
+    render_cache_clear()
+    build.reset_launches()
+    expect = {"frames": 0, "stats_passes": 0}   # what the launches must add up to
+    try:
+        # -- the frame: the smallest span at which the main triple cuts nothing
+        scene, cam = scene_and_camera("train", gaussians, width, height, device=dev)
+        frame, probes, span = "main", [], None
+        for sp in spans:
+            cfg = RenderConfig(backend="cuda", **{**CFG_KW, "span": sp,
+                                                  "group_capacity": group_capacity})
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            try:
+                s, secs = wall(lambda c=cfg: stats_pass(scene, cam, c))
+            except torch.cuda.OutOfMemoryError as e:
+                probes.append({"span": sp, "oom": str(e)[:200]})
+                break
+            expect["stats_passes"] += 1
+            probes.append({"span": sp, "overflow": int(s.overflow),
+                           "span_overflow": int(s.span_overflow),
+                           "n_candidate_tests": int(s.n_candidate_tests),
+                           "n_pairs_sort": int(s.n_pairs_sort), "s": secs,
+                           "max_memory_allocated_gb": peak_gb()})
+            if int(s.overflow) + int(s.span_overflow) == 0:
+                span = sp
+                break
+        if span is None:
+            # No span fits on the card: tune the lossless phase's frame.
+            frame, span = "lossless", CFG_KW["span"]
+            extent = PAPER_SCENES["train"].extent
+            scene = scene_like_paper("train", lossless_gaussians, device=dev)
+            cam = make_camera((0.0, extent * 0.7, extent * 3.0), (0, 0, 0), width, height,
+                              fov_x_deg=62.0)
+        base = RenderConfig(backend="cuda", **{**CFG_KW, "span": span,
+                                               "group_capacity": group_capacity})
+        main_triple = (base.tile, base.group, base.tile_capacity)
+        emit({"phase": "autotune", "check": "span_probe", "nvidia_smi": smi,
+              "frame": frame, "gaussians": scene.num_gaussians, "triple": main_triple,
+              "group_capacity": group_capacity, "probes": probes, "span": span})
+
+        # -- 1. sweep: every feasible point measured, no cache written ---------
+        res, sweep_s = wall(lambda: sweep(scene, cam, base, device=dev, warmup=1,
+                                          reps=AUTOTUNE_REPS, **grid))
+        traj = res.trajectory
+        feasible = [e for e in traj if e["feasible"]]
+        statted = [e for e in traj if e["reason"] != "member_tiles"]
+        expect["stats_passes"] += len(statted)
+        expect["frames"] += len(feasible) * (1 + AUTOTUNE_REPS)
+        after_sweep = dict(build.LAUNCHES)
+
+        def knobs(e):
+            return (e["tile"], e["group"], e["tile_capacity"])
+
+        longest = {str(knobs(e)): list_max(scene, cam, config_for(base, Candidate(*knobs(e))))
+                   for e in statted}
+        expect["stats_passes"] += len(statted)      # one BGM launch each
+        by_model = [knobs(e) for e in sorted(feasible, key=lambda e: e["est_total_s"])]
+        by_card = [knobs(e) for e in sorted(feasible, key=lambda e: e["measured_ms"])]
+        measured = {knobs(e): e["measured_ms"] for e in feasible}
+        emit({"phase": "autotune", "check": "sweep", "grid": grid, "base_config": {
+                  **CFG_KW, "span": span, "group_capacity": group_capacity},
+              "trajectory": [{k: e[k] for k in (
+                  "tile", "group", "tile_capacity", "feasible", "reason", "est_total_s",
+                  "n_pairs_sort", "tile_entries", "overflow", "measured_ms")} for e in traj],
+              "winner": list(res.candidate.as_dict().values()),
+              "winner_frame_ms": res.measured_ms,
+              "list_max": longest,
+              "main_triple_frame_ms": measured.get(main_triple),
+              "model_order": by_model, "card_order": by_card,
+              "model_best_card_rank": by_card.index(by_model[0]) + 1 if by_model else None,
+              "card_best_model_rank": by_model.index(by_card[0]) + 1 if by_card else None,
+              "sweep_s": sweep_s})
+        gf_over = [e for e in traj
+                   if (e["group"] // e["tile"]) ** 2 > 32]
+        check(any(knobs(e) == main_triple for e in feasible),
+              f"autotune: the main triple {main_triple} is not a feasible grid point")
+        check(any(e["tile"] != base.tile for e in feasible),
+              "autotune: no feasible candidate at another tile")
+        check(any(e["group"] != base.group for e in feasible),
+              "autotune: no feasible candidate at another group")
+        check(gf_over and all(not e["feasible"] and e["reason"] == "member_tiles"
+                              and e["est"] is None for e in gf_over),
+              f"autotune: a candidate past 32 member tiles was not refused: {gf_over}")
+        check(res.measured_ms <= min(measured.values()),
+              "autotune: the sweep's winner is not its measured minimum")
+        check(memory_entries() == 0 and not cache_file.exists(),
+              "autotune: the sweep wrote the cache")
+
+        # -- 2./3. the search: top 3 by the model, measured, verified ----------
+        tuned_res, search_s = wall(lambda: autotune(
+            scene, cam, base, device=dev, top_k=AUTOTUNE_TOP_K, warmup=1,
+            reps=AUTOTUNE_REPS, verify=True, **grid))
+        survivors = [e for e in tuned_res.trajectory if e["measured_ms"] is not None]
+        expect["stats_passes"] += len(statted)
+        expect["frames"] += len(survivors) * (1 + AUTOTUNE_REPS) + 2   # + verify's two
+        hit_res, hit_s = wall(lambda: autotune(scene, cam, base, device=dev, **grid))
+        emit({"phase": "autotune", "check": "search", "source": tuned_res.source,
+              "winner": list(tuned_res.candidate.as_dict().values()),
+              "measured_ms": tuned_res.measured_ms,
+              "survivors": {str(knobs(e)): e["measured_ms"] for e in survivors},
+              "verified": True, "search_s": search_s, "cache_hit_s": hit_s,
+              "cache_hit_source": hit_res.source})
+        check(tuned_res.source == "search" and len(survivors) == min(AUTOTUNE_TOP_K,
+                                                                     len(feasible)),
+              f"autotune: the search measured {len(survivors)} survivors")
+        check(tuned_res.measured_ms <= min(e["measured_ms"] for e in survivors),
+              "autotune: the winner is not the fastest survivor it measured")
+        check(hit_res.source == "cache" and hit_res.candidate == tuned_res.candidate,
+              f"autotune: a second search did not hit the cache ({hit_res.source})")
+
+        # -- 4./5. engine.open(tile_params='auto'), cold, cached, from the file --
+        render_cache_clear()
+        cache_file.unlink()
+        opts = dict(grid, top_k=AUTOTUNE_TOP_K, warmup=1, reps=AUTOTUNE_REPS)
+        sig = autotune_signature(scene, width, height, base, dev)
+        with engine.open(scene, base, device=dev, tile_params="auto",
+                         autotune_opts=opts) as ra:
+            auto, cold_s = wall(lambda: ra.render(cam))
+            tuned = ra.tile_params
+            expect["stats_passes"] += len(statted)
+            expect["frames"] += min(AUTOTUNE_TOP_K, len(feasible)) * (1 + AUTOTUNE_REPS) + 1
+            with engine.open(scene, base, device=dev, tile_params=tuned) as rf:
+                fixed = rf.render(cam)
+                fixed_ms = [wall(lambda: rf.render(cam))[1] * 1e3 for _ in range(AUTOTUNE_REPS)]
+            before = dict(build.LAUNCHES)
+            with engine.open(scene, base, device=dev, tile_params="auto",
+                             autotune_opts=opts) as rc:
+                cached, cached_s = wall(lambda: rc.render(cam))
+                cached_tuned = rc.tile_params
+            cached_passes = (build.LAUNCHES["bitmask_gen"] - before["bitmask_gen"]
+                             - build.LAUNCHES["raster_group_fused"]
+                             + before["raster_group_fused"])
+            expect["frames"] += 2 + AUTOTUNE_REPS
+        memory_after_close = memory_entries()
+        with engine.open(scene, base, device=dev, tile_params="auto",
+                         autotune_opts=opts) as rd:
+            reopened = rd.render(cam)
+            reopen_source = (lookup(sig) or {}).get("source")
+        expect["frames"] += 1
+        bitwise = {
+            "auto_vs_fixed": bool(torch.equal(auto.image, fixed.image))
+            and auto.stats.as_dict() == fixed.stats.as_dict(),
+            "cached_vs_fixed": bool(torch.equal(cached.image, fixed.image)),
+            "reopened_vs_fixed": bool(torch.equal(reopened.image, fixed.image)),
+        }
+        emit({"phase": "autotune", "check": "auto", "tile_params": tuned,
+              "bitwise": bitwise, "cold_first_render_s": cold_s,
+              "cached_first_render_s": cached_s, "fixed_frame_ms": fixed_ms,
+              "cached_stats_passes": cached_passes, "cached_tile_params": cached_tuned,
+              "memory_entries_after_close": memory_after_close,
+              "file_after_close": cache_file.exists(), "reopen_source": reopen_source})
+        check(all(bitwise.values()), f"autotune: 'auto' differs from the fixed winner {bitwise}")
+        check(cached_passes == 0 and cached_tuned == tuned,
+              f"autotune: a second 'auto' open ran {cached_passes} stats passes")
+        check(memory_after_close == 0 and cache_file.exists() and reopen_source == "disk",
+              f"autotune: after close memory {memory_after_close}, file "
+              f"{cache_file.exists()}, re-open source {reopen_source}")
+        del auto, cached, reopened
+
+        # -- 6. RenderServer(autotune=True): two requests, bitwise render ------
+        cams = eval_cameras(PAPER_SCENES["train"].extent, BATCH_AZIMUTHS_DEG[:2], width,
+                            height) if frame == "main" else [cam, cam]
+        with RenderServer({"train": scene}, device=dev, autotune=True, autotune_opts=opts,
+                          max_batch=2, max_wait=60.0) as server:
+            served = server.run([(0.0, RenderRequest(i, "train", c, base))
+                                 for i, c in enumerate(cams)], realtime=False)
+            served_tuned = server.commit("train", base).tile_params
+            summary = server.stats.summary()
+        with engine.open(scene, base, device=dev, tile_params=served_tuned) as rf:
+            served_bitwise = [bool(torch.equal(served[i].image, rf.render(c).image.cpu()))
+                              for i, c in enumerate(cams)]
+        expect["frames"] += summary["completed"] + summary["padded"] + len(cams)
+        emit({"phase": "autotune", "check": "server", "tile_params": served_tuned,
+              "bitwise_vs_render": served_bitwise})
+        check(len(served) == len(cams) and all(served_bitwise),
+              f"autotune: served images differ from render: {served_bitwise}")
+        check(served_tuned == tuned, f"autotune: the server tuned {served_tuned}, not {tuned}")
+        launches = dict(build.LAUNCHES)
+        sync()
+        del scene, fixed, served
+
+        # -- 7. the one-shot CLI with --autotune, in a subprocess ---------------
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        cmd = [sys.executable, "-m", "repro_torch.launch.render", "--autotune",
+               "--backend", "cuda", "--device", dev.type, *AUTOTUNE_CLI]
+        proc, cli_s = wall(lambda: subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                                                  text=True, timeout=600))
+        m = re.search(r"tile_params=\((\d+), (\d+), (\d+)\)", proc.stdout)
+        emit({"phase": "autotune", "check": "cli", "cmd": " ".join(cmd[1:]),
+              "returncode": proc.returncode, "tile_params": m.group(0) if m else None,
+              "wall_s": cli_s, "stdout_tail": proc.stdout[-800:],
+              "stderr_tail": proc.stderr[-800:]})
+        check(proc.returncode == 0 and m is not None,
+              f"autotune: the CLI exited {proc.returncode}: {proc.stderr[-500:]}")
+    finally:
+        if prev_env is None:
+            os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = prev_env
+        render_cache_clear()
+        tmp.cleanup()
+
+    # -- 8. the BGM and the fused RM once a measured frame (the BGM also once a
+    # stats pass); no other kernel
+    want = {"bitmask_gen": expect["frames"] + expect["stats_passes"],
+            "raster_group_fused": expect["frames"], "raster_tile": 0, "bitonic_sort": 0}
+    # Frame times from the sweep, which measured every feasible point in one
+    # pass: the tuned winner (top 3 by the model), the card's fastest, and
+    # the main triple.
+    emit({"phase": "autotune", "nvidia_smi": smi, "frame": frame, "span": span,
+          "winner": tuned, "winner_frame_ms": measured.get(tuned),
+          "sweep_winner": list(res.candidate.as_dict().values()),
+          "sweep_winner_frame_ms": res.measured_ms,
+          "main_triple_frame_ms": measured.get(main_triple),
+          "search_wall_s": {"cold": search_s, "cold_through_handle": cold_s,
+                            "cache_hit": hit_s, "cache_hit_through_handle": cached_s},
+          "launches": launches, "expected_launches": want,
+          "sweep_launches": after_sweep, "peak_mem_gb": peak_gb(),
+          "phase_s": time.perf_counter() - t_phase})
+    if on_card:
+        check(launches == want, f"autotune: launches {launches}, expected {want}")
+    return launches
 
 
 def submit_breakdown(events) -> dict:
@@ -1834,6 +2163,9 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     # -- serve: the serving tier at the paper's scene sizes -------------------
     served_launches = serve_phase(dev, on_card, check, smi, width, height)
 
+    # -- autotune: tile parameters tuned for the main frame --------------------
+    autotune_launches = autotune_phase(dev, on_card, check, smi, width, height)
+
     # -- 6. scene training at the main path's size, outside inference mode ----
     with torch.inference_mode(False):
         train_phase(dev, on_card, check, cam, main_image.clone(), n_main, width, height)
@@ -1862,6 +2194,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
             "replaces": replaces[name][0], "path": path, "launches": launches,
             "launches_sharded": sharded_launches[name],
             "launches_served": served_launches[name],
+            "launches_autotune": autotune_launches[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": k.get("library_ms"),

@@ -31,6 +31,9 @@ With ``timing=True`` every stage runs fenced through
 counter are bitwise those of an untimed render. The fences serialize the
 stages, so a timed frame's wall time is not the untimed frame's.
 
+``frontend_stats`` runs stages 1-5 alone and reports the counters a render
+would (the autotune's stats pass, ``repro_torch.autotune``).
+
 On the ``reference`` backend ``render`` is differentiable in the scene
 (core/train.py): only projection, the feature gathers and the blend record
 a graph; identify, bin, bitmask and compact give integers and run under
@@ -64,9 +67,11 @@ from repro_torch.core.stages import (
 from repro_torch.obs import get_registry, get_tracer
 from repro_torch.sharding.scene import SceneLike, ShardedScene, shard_scene
 from repro_torch.utils import wide_count_sum
-from repro_torch.utils.misc import ITEM_AUTOTUNE, fence, not_ported
+from repro_torch.utils.misc import fence
 
 MODES = ("gstg", "tile_baseline", "group_baseline")
+# gstg keeps one bit per member tile of a group in a 32-bit mask word.
+MAX_MEMBER_TILES = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,14 +165,21 @@ def check_config(cfg: RenderConfig) -> None:
             f"unknown feature_gather {cfg.feature_gather!r}; expected "
             f"'auto' or one of {FEATURE_GATHER_STRATEGIES}"
         )
-    tpg = (cfg.group // cfg.tile) ** 2
-    if cfg.mode == "gstg" and tpg > 32:
+    if too_many_member_tiles(cfg):
         # The JAX package renders this case wrong (it drops member tiles 32
         # and up), so the port refuses it rather than copy that.
         raise ValueError(
-            f"gstg needs at most 32 member tiles a group, one bit each in the 32-bit "
-            f"tile mask; tile {cfg.tile} and group {cfg.group} give {tpg}"
+            f"gstg needs at most {MAX_MEMBER_TILES} member tiles a group, one bit each "
+            f"in the 32-bit tile mask; tile {cfg.tile} and group {cfg.group} give "
+            f"{(cfg.group // cfg.tile) ** 2}"
         )
+
+
+def too_many_member_tiles(cfg: RenderConfig) -> bool:
+    """Whether a gstg config's groups hold more member tiles than the
+    32-bit tile mask has bits (``check_config`` refuses it; the autotune
+    holds it infeasible)."""
+    return cfg.mode == "gstg" and (cfg.group // cfg.tile) ** 2 > MAX_MEMBER_TILES
 
 
 def _scene_for_render(scene: SceneLike, cfg: RenderConfig) -> SceneLike:
@@ -350,7 +362,6 @@ def _run_backend(backend: Backend, front: FrontendResult, cam, cfg: RenderConfig
     direct per-bin rasterization for the baselines."""
     grid = _grid(cam, cfg)
     proj, table = front.proj, front.table
-    zero = torch.zeros((), dtype=torch.int64, device=table.gauss_idx.device)
 
     if cfg.mode == "gstg":
         # 4) BGM: tile-granularity tests on the group entries. 5) RM FIFO:
@@ -365,19 +376,7 @@ def _run_backend(backend: Backend, front: FrontendResult, cam, cfg: RenderConfig
             background=background, chunk=cfg.chunk, early_exit=cfg.early_exit,
             tile_capacity=cfg.tile_capacity,
         )
-        stats = RenderStats(
-            n_visible=front.n_visible,
-            n_candidate_tests=front.n_candidate_tests,
-            n_pairs_sort=front.n_pairs_sort,
-            sort_ops=sort_op_count(table.lengths),
-            n_bit_tests=masks.n_bit_tests,
-            fifo_ops=wide_count_sum(table.lengths) * grid.tiles_per_group,
-            alpha_ops=rast.alpha_ops,
-            blend_ops=rast.blend_ops,
-            tile_entries=compacted.tile_entries,
-            overflow=table.overflow + compacted.overflow,
-            span_overflow=front.span_overflow,
-        )
+        stats = _stats(front, cfg, grid, rast.alpha_ops, rast.blend_ops, masks, compacted)
         return RenderResult(image=rast.image, stats=stats)
 
     if cfg.mode == "tile_baseline":
@@ -395,20 +394,66 @@ def _run_backend(backend: Backend, front: FrontendResult, cam, cfg: RenderConfig
         proj, table, raster_grid,
         background=background, chunk=cfg.chunk, early_exit=cfg.early_exit,
     )
-    stats = RenderStats(
+    stats = _stats(front, cfg, grid, rast.alpha_ops, rast.blend_ops)
+    return RenderResult(image=rast.image[: cam.height, : cam.width], stats=stats)
+
+
+def _stats(front: FrontendResult, cfg: RenderConfig, grid: GridSpec, alpha_ops, blend_ops,
+           masks=None, compacted=None) -> RenderStats:
+    """The RenderStats of a frame: the frontend's counters, the mode's
+    table counters, and the given raster counters. gstg passes its masks
+    and compacted lists; the baselines have neither."""
+    table = front.table
+    if cfg.mode == "gstg":
+        n_bit_tests = masks.n_bit_tests
+        fifo_ops = wide_count_sum(table.lengths) * grid.tiles_per_group
+        tile_entries = compacted.tile_entries
+        overflow = table.overflow + compacted.overflow
+    else:
+        n_bit_tests = fifo_ops = torch.zeros((), dtype=torch.int64, device=table.lengths.device)
+        tile_entries = wide_count_sum(table.lengths)
+        overflow = table.overflow
+    return RenderStats(
         n_visible=front.n_visible,
         n_candidate_tests=front.n_candidate_tests,
         n_pairs_sort=front.n_pairs_sort,
         sort_ops=sort_op_count(table.lengths),
-        n_bit_tests=zero,
-        fifo_ops=zero,
-        alpha_ops=rast.alpha_ops,
-        blend_ops=rast.blend_ops,
-        tile_entries=wide_count_sum(table.lengths),
-        overflow=table.overflow,
+        n_bit_tests=n_bit_tests,
+        fifo_ops=fifo_ops,
+        alpha_ops=alpha_ops,
+        blend_ops=blend_ops,
+        tile_entries=tile_entries,
+        overflow=overflow,
         span_overflow=front.span_overflow,
     )
-    return RenderResult(image=rast.image[: cam.height, : cam.width], stats=stats)
+
+
+def frontend_stats(scene: SceneLike, cam: Camera, cfg: RenderConfig) -> RenderStats:
+    """Counters without rasterization: the autotune's stats pass.
+
+    Runs stages 1-5 (project, identify, bin, and bitmask and compact in
+    gstg) on ``cfg.backend`` and returns the RenderStats whose frontend
+    counters equal those ``render`` reports for the same config. Stage 6's
+    counters are replaced as in the JAX package: ``alpha_ops`` is
+    ``tile_entries`` x pixels a bin (every surviving entry tested against
+    every pixel of its bin, the no-early-exit bound, monotone across
+    candidates), and ``blend_ops`` is 0 (the cost model never reads it)."""
+    check_config(cfg)
+    backend = _stage_backend(cfg)
+    front = _run_frontend(backend, scene, cam, cfg)
+    grid = _grid(cam, cfg)
+    table = front.table
+    zero = torch.zeros((), dtype=torch.int64, device=table.lengths.device)
+    if cfg.mode == "gstg":
+        with torch.no_grad():
+            masks = backend.bitmasks(front.proj, table, grid, cfg.boundary_tile,
+                                     chunk=cfg.chunk)
+            compacted = backend.compact(table, masks, grid, cfg.tile_capacity)
+        alpha_ops = compacted.tile_entries * (cfg.tile * cfg.tile)
+        return _stats(front, cfg, grid, alpha_ops, zero, masks, compacted)
+    bin_px = cfg.tile if cfg.mode == "tile_baseline" else cfg.group
+    alpha_ops = wide_count_sum(table.lengths) * (bin_px * bin_px)
+    return _stats(front, cfg, grid, alpha_ops, zero)
 
 
 # ---------------------------------------------------------------------------
@@ -638,5 +683,3 @@ def render_image(
 
     return engine.default_renderer(scene, cfg).render(cam, background).image
 
-
-frontend_stats = not_ported("frontend_stats", ITEM_AUTOTUNE)

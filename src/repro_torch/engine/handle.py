@@ -25,6 +25,13 @@ returns a :class:`Renderer`:
     out and back in, bitwise invisibly, from a host copy of the layout;
   * ``.open_stream()`` opens a :class:`~repro_torch.engine.stream.StreamRenderer`
     over the handle: a frontend cache keyed by exact pose plus speculation;
+  * ``tile_params=(tile, group, tile_capacity)`` commits that triple;
+    ``tile_params='auto'`` defers it to the first render, which looks the
+    scene's signature up in the autotune cache or runs the two-phase search
+    (``repro_torch.autotune``) on the handle's device, then commits the
+    winner before any renderer exists: every render path (``render``, the
+    halves, ``render_batch``, ``submit``, streams) reaches that resolution
+    first, and renders bitwise like an open with the winner fixed;
   * the handle owns a per-geometry cache of its render callables,
     registered with ``core.pipeline.register_render_cache`` so
     ``render_cache_info()`` covers it;
@@ -37,8 +44,7 @@ deprecated free functions (``render_jit``, ``render_image``,
 ``render_batch_sharded``), committed on the scene's own device.
 
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: meshes and several devices (queue 1, item 8); tile-parameter autotune
-(item 11).
+item: meshes and several devices (queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -83,17 +89,12 @@ from repro_torch.serving.sharded import (
 )
 from repro_torch.sharding.scene import SceneLike, ShardedScene
 from repro_torch.utils import pytree_bytes, resolve_device
-from repro_torch.utils.misc import ITEM_AUTOTUNE, ITEM_SHARDING
+from repro_torch.utils.misc import ITEM_SHARDING
 
 _HANDLE_SEQ = itertools.count()
 _FN_CACHE_MAX = 64          # per-handle cached-renderer bound
 # open() options of the JAX handle the port does not take yet -> queue item.
-_UNPORTED_OPTIONS = {
-    "devices": ITEM_SHARDING,
-    "mesh": ITEM_SHARDING,
-    "tile_params": ITEM_AUTOTUNE,
-    "autotune_opts": ITEM_AUTOTUNE,
-}
+_UNPORTED_OPTIONS = {"devices": ITEM_SHARDING, "mesh": ITEM_SHARDING}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,9 +135,30 @@ class Renderer:
         max_batch: int = 8,
         max_wait: float = 0.05,
         queue_depth: int = 64,
+        tile_params: Union[None, str, tuple] = None,
+        autotune_opts: Optional[dict] = None,
         residency: Optional[ResidencyManager] = None,
         clock=time.monotonic,
     ):
+        # Tile-grouping params: a (tile, group, tile_capacity) triple commits
+        # now; 'auto' waits for the first render, which brings the camera
+        # resolution the search needs. The scene it tunes on is held until
+        # close(), which evicts its autotune entries.
+        self._autotune_opts = dict(autotune_opts or {})
+        self._tune_lock = threading.Lock()
+        self._tune_pending = tile_params == "auto"
+        self._tune_source = scene if self._tune_pending else None
+        if tile_params is not None and not self._tune_pending:
+            from repro_torch.autotune.search import Candidate, config_for
+
+            try:
+                cand = Candidate(*(int(x) for x in tile_params))
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"tile_params must be None, 'auto', or a (tile, group, "
+                    f"tile_capacity) triple; got {tile_params!r}"
+                ) from None
+            cfg = config_for(cfg, cand)
         shards = self._resolve_shards(scene, cfg, scene_shards)
         # One device: the shard axis stays logical (render_mesh_shards over
         # one device is 1), so neither budget term divides by D.
@@ -274,8 +296,11 @@ class Renderer:
         return self._cfg.scene_shards
 
     @property
-    def tile_params(self) -> tuple:
-        """The committed (tile, group, tile_capacity)."""
+    def tile_params(self) -> Union[str, tuple]:
+        """The committed (tile, group, tile_capacity), or ``'auto
+        (pending)'`` until an ``'auto'`` handle's first render resolves it."""
+        if self._tune_pending:
+            return "auto (pending)"
         return (self._cfg.tile, self._cfg.group, self._cfg.tile_capacity)
 
     @property
@@ -447,6 +472,25 @@ class Renderer:
         if self._closed:
             raise RuntimeError("Renderer is closed")
 
+    def _resolve_tile_params(self, cam) -> None:
+        """Resolve a pending ``tile_params='auto'`` at this camera's
+        resolution: the autotune cache (memory, then file), or the two-phase
+        search on the handle's device on a miss; then commit the winner into
+        the handle's config. Runs once a handle, before the first renderer
+        exists. Thread-safe: the submit worker, a stream and a direct call
+        may race here."""
+        if not self._tune_pending:
+            return
+        with self._tune_lock:
+            if not self._tune_pending:
+                return
+            from repro_torch.autotune.search import autotune, config_for
+
+            res = autotune(self._tune_source, cam, self._cfg, device=self._device,
+                           **self._autotune_opts)
+            self._cfg = config_for(self._cfg, res.candidate)
+            self._tune_pending = False
+
     def _background(self, background) -> Optional[torch.Tensor]:
         if background is None:
             return None
@@ -457,6 +501,7 @@ class Renderer:
     def render(self, cam: Camera, background=None) -> RenderResult:
         """Render one camera against the committed scene."""
         self._check_open()
+        self._resolve_tile_params(cam)
         fn = self._fn("single", cam)
         with torch.inference_mode():
             return fn(self._scene, cam, self._background(background))
@@ -465,6 +510,7 @@ class Renderer:
         """Only the frontend half (project -> identify -> bin) for one
         camera; feed the result to :meth:`render_backend` for pixels."""
         self._check_open()
+        self._resolve_tile_params(cam)
         fn = self._fn("frontend", cam)
         with torch.inference_mode():
             return fn(self._scene, cam)
@@ -476,6 +522,7 @@ class Renderer:
         :class:`FrontendResult`. ``render_backend(render_frontend(cam), cam)``
         equals ``render(cam)``; only the static geometry of ``cam`` is read."""
         self._check_open()
+        self._resolve_tile_params(cam)
         fn = self._fn("backend", cam)
         with torch.inference_mode():
             return fn(front, self._background(background))
@@ -492,6 +539,9 @@ class Renderer:
         padded lanes are rendered and dropped, and exactly B come back."""
         self._check_open()
         batch = cams if isinstance(cams, CameraBatch) else CameraBatch.from_cameras(cams)
+        # An 'auto' handle tunes at lane 0: the signature reads only the
+        # geometry every lane shares.
+        self._resolve_tile_params(batch.camera(0))
         orig = len(batch)
         padded = pad_camera_batch(batch, padded_size(max(orig, pad_to or 0), 1))
         fn = self._fn("batch", padded)
@@ -698,6 +748,13 @@ class Renderer:
             # layout drops when the last reference goes.
             release_scene_layout(*self._layout_ref)
             self._layout_ref = None
+        if self._tune_source is not None:
+            # The tune's in-memory entries go with the handle; the file keeps
+            # them, so a re-open reloads instead of searching.
+            from repro_torch.autotune import evict_autotune_entries
+
+            evict_autotune_entries(self._tune_source)
+            self._tune_source = None
 
     def __enter__(self) -> "Renderer":
         return self
@@ -724,6 +781,8 @@ def open(  # noqa: A001 — the module-level session verb is the API
     max_batch: int = 8,
     max_wait: float = 0.05,
     queue_depth: int = 64,
+    tile_params: Union[None, str, tuple] = None,
+    autotune_opts: Optional[dict] = None,
     residency: Optional[ResidencyManager] = None,
     clock=time.monotonic,
     **unported,
@@ -745,8 +804,15 @@ def open(  # noqa: A001 — the module-level session verb is the API
     * ``scene_shards`` — ``'auto'`` takes D from ``cfg.scene_shards``, or
       from a pre-sharded ``ShardedScene``; an int D commits D logical shards
       on the one device (``feature_gather='auto'`` runs ``'index'``).
-    * ``devices``, ``mesh``, ``tile_params`` and ``autotune_opts`` raise
-      ``NotImplementedError`` naming their ROADMAP item.
+    * ``tile_params`` — ``None`` keeps the config's (tile, group,
+      tile_capacity); a triple commits that one (``group_capacity`` floored
+      at its tile capacity); ``'auto'`` tunes at the first render (the
+      autotune cache, else the two-phase search on ``device``) and commits
+      the winner. ``autotune_opts`` goes to
+      :func:`repro_torch.autotune.autotune`. A gstg triple past 32 member
+      tiles a group raises ``ValueError`` here.
+    * ``devices`` and ``mesh`` raise ``NotImplementedError`` naming their
+      ROADMAP item.
     """
     for name in unported:
         if name not in _UNPORTED_OPTIONS:
@@ -759,6 +825,7 @@ def open(  # noqa: A001 — the module-level session verb is the API
         scene, cfg, device=device, scene_shards=scene_shards,
         device_budget_mb=device_budget_mb,
         max_batch=max_batch, max_wait=max_wait, queue_depth=queue_depth,
+        tile_params=tile_params, autotune_opts=autotune_opts,
         residency=residency, clock=clock,
     )
 

@@ -16,10 +16,14 @@ measured one, whose ``stage/<name>`` spans ``--stats`` tabulates and
 ``--trace-json`` writes as a Chrome trace. The fences serialize the stages,
 so the printed wall time is then not the untimed frame time.
 
+``--autotune`` opens the handle with ``tile_params='auto'``: the first
+render tunes (tile, group, tile_capacity) on the device, or hits the port's
+autotune cache (``REPRO_TORCH_AUTOTUNE_CACHE``), and the first line names
+the tuned triple.
+
 Differences from the JAX package's driver: ``--backend reference|cuda``
-(``--use-kernels`` is the alias for ``cuda``), ``--device`` (CUDA unless
-the caller names another; there is no fallback), and ``--autotune`` raises
-(ROADMAP queue 1, item 11).
+(``--use-kernels`` is the alias for ``cuda``) and ``--device`` (CUDA unless
+the caller names another; there is no fallback).
 """
 from __future__ import annotations
 
@@ -35,7 +39,6 @@ from repro_torch.configs import scene_and_camera
 from repro_torch.core.cost_model import GSTG_ASIC, estimate
 from repro_torch.core.pipeline import RenderConfig, render_cache_info
 from repro_torch.obs import get_tracer, trace_env_enabled
-from repro_torch.utils.misc import ITEM_AUTOTUNE
 
 
 def _stage_table(events) -> str:
@@ -80,7 +83,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--capacity", type=int, default=1024,
                     help="group/tile table capacity")
     ap.add_argument("--autotune", action="store_true",
-                    help="tile-parameter autotune (not ported yet: raises)")
+                    help="ignore --tile/--group/--capacity's triple and open the handle "
+                         "with tile_params='auto': the first render pays the tuning "
+                         "search, or hits the autotune cache, and commits the tuned "
+                         "knobs")
     ap.add_argument("--stats", action="store_true",
                     help="print the render-cache statistics after the render (+ a "
                          "per-stage device-time table when timing is on via "
@@ -93,10 +99,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = _parser().parse_args(argv)
-    if args.autotune:
-        raise NotImplementedError(
-            f"--autotune is not ported yet (ROADMAP queue 1, item {ITEM_AUTOTUNE})"
-        )
     backend = "cuda" if args.use_kernels else args.backend
     timing = trace_env_enabled() or bool(args.trace_json)
     tracer = get_tracer()
@@ -119,7 +121,8 @@ def main(argv=None) -> None:
         scene_shards=args.scene_shards,
         timing=timing,
     )
-    with engine.open(scene, cfg, device=args.device) as renderer:
+    with engine.open(scene, cfg, device=args.device,
+                     tile_params="auto" if args.autotune else None) as renderer:
         if timing:
             # The warm render pays first-call costs (kernel loads, allocator
             # growth); drop its spans so the table and trace show the
@@ -132,7 +135,8 @@ def main(argv=None) -> None:
         dt = time.time() - t0
 
         print(f"scene={args.scene} mode={args.mode} backend={backend} "
-              f"device={args.device} {img.shape} in {dt:.2f}s")
+              f"device={args.device} {img.shape} in {dt:.2f}s"
+              + (f" tile_params={renderer.tile_params}" if args.autotune else ""))
         print(f"  visible gaussians : {stats['n_visible']}")
         print(f"  sort keys         : {stats['n_pairs_sort']}")
         print(f"  alpha ops         : {stats['alpha_ops']}")

@@ -17,8 +17,8 @@ cache and speculation counters.
 Differences from the JAX package's CLI: ``--device`` (CUDA unless the
 caller names another; no fallback) in place of ``--devices``,
 ``--backend reference|cuda``, ``--scene-shards D`` commits D logical
-shards on the one device, and ``--autotune`` raises (ROADMAP queue 1,
-item 11).
+shards on the one device, and under ``--autotune`` the parity check renders
+each scene at its handle's tuned triple.
 
 Exits non-zero unless every request completes with a finite p99 and, under
 ``--parity-check``, every image is bitwise equal to the handle's
@@ -30,8 +30,6 @@ import argparse
 import dataclasses
 import json
 import math
-
-from repro_torch.utils.misc import ITEM_AUTOTUNE
 
 
 def parse_args(argv=None):
@@ -83,7 +81,9 @@ def parse_args(argv=None):
                     choices=["gstg", "tile_baseline", "group_baseline"])
     ap.add_argument("--capacity", type=int, default=512)
     ap.add_argument("--autotune", action="store_true",
-                    help="tile-parameter autotune (not ported yet: raises)")
+                    help="open every handle with tile_params='auto': the first dispatch "
+                         "of each (scene, config) pays a tuning search, or hits the "
+                         "autotune cache, then serves the tuned triple")
     ap.add_argument("--no-realtime", action="store_true",
                     help="replay arrivals as fast as possible (throughput mode)")
     ap.add_argument("--trace-json", default=None,
@@ -107,10 +107,6 @@ def _parse_resolutions(spec: str):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.autotune:
-        raise NotImplementedError(
-            f"--autotune is not ported yet (ROADMAP queue 1, item {ITEM_AUTOTUNE})"
-        )
 
     import numpy as np
     import torch
@@ -182,6 +178,11 @@ def main(argv=None) -> int:
         queue_depth=args.queue_depth,
         scene_shards=shards,
         device_budget_mb=args.device_budget_mb,
+        autotune=args.autotune,
+        # Serving tunes on the first dispatch's critical path, so the
+        # measured phase stays short; the cost-model phase still prunes the
+        # whole default grid.
+        autotune_opts={"top_k": 2, "warmup": 1, "reps": 2} if args.autotune else None,
         stream_cache_frames=args.stream_cache_frames,
         spec_depth=args.spec_depth,
         prefetch=not args.no_prefetch,
@@ -234,16 +235,23 @@ def main(argv=None) -> int:
               f"(hits={st['hits']} misses={st['misses']}) "
               f"spec: runs={st['spec_runs']} hits={st['spec_hits']} "
               f"dropped={st['spec_dropped']} discarded={st['spec_discarded']}")
+    tuned = {}        # scene -> its handle's tuned triple, under --autotune
+    if args.autotune:
+        for sid in scene_ids:
+            tuned[sid] = server.commit(sid, cfg).tile_params
+            print(f"autotuned {sid!r}: tile_params={tuned[sid]}")
 
     parity_failures = 0
     if args.parity_check:
-        # The stateless reference: one-shard handles' render of each camera.
-        # Logical shards, render_batch lanes and stream frames are all
-        # bitwise a one-shard render in the port.
+        # The stateless reference: one-shard handles' render of each camera,
+        # at the served handle's tuned triple under --autotune. Logical
+        # shards, render_batch lanes and stream frames are all bitwise a
+        # one-shard render in the port.
         cfg_one = dataclasses.replace(cfg, scene_shards=1)
         by_id = {r.request_id: r for _, r in load}
-        refs = {sid: engine.open(scenes[sid], cfg_one, device=args.device)
-                for sid in scene_ids}
+        refs = {sid: engine.open(scenes[sid], cfg_one, device=args.device,
+                                 tile_params=tuned.get(sid))
+                for sid in sorted({by_id[rid].scene_id for rid in results})}
         for rid, res in sorted(results.items()):
             req = by_id[rid]
             expect = refs[req.scene_id].render(req.camera).image.cpu()

@@ -42,7 +42,7 @@ from repro_torch.serving.queue import RenderRequest, RequestQueue
 from repro_torch.serving.stats import ServingStats
 from repro_torch.sharding.scene import SceneLike
 from repro_torch.utils import resolve_device
-from repro_torch.utils.misc import ITEM_AUTOTUNE, ITEM_SHARDING
+from repro_torch.utils.misc import ITEM_SHARDING
 
 
 @dataclasses.dataclass
@@ -67,9 +67,13 @@ class RenderServer:
     residency manager: scenes that fit individually but not together page
     in and out LRU against the budget, bitwise invisibly, and only a scene
     too big to fit alone fails at commit; ``prefetch=False`` turns off the
-    admission-time page-in. ``mesh=`` (several devices, ROADMAP item 8) and
-    ``autotune`` (item 11) raise ``NotImplementedError``. Close the server
-    (or use it as a context manager) to close its handles.
+    admission-time page-in. ``autotune=True`` opens every handle with
+    ``tile_params='auto'``: the first dispatch of each (scene, config) tunes
+    on the server's device, or hits the autotune cache, and the handle
+    serves the tuned triple from then on (``autotune_opts`` goes to
+    ``repro_torch.autotune.autotune``). ``mesh=`` (several devices, ROADMAP
+    item 8) raises ``NotImplementedError``. Close the server (or use it as a
+    context manager) to close its handles.
     """
 
     def __init__(
@@ -96,15 +100,12 @@ class RenderServer:
                 f"RenderServer(mesh=...) is not ported yet (ROADMAP queue 1, item "
                 f"{ITEM_SHARDING}); the port serves from one device (device=...)"
             )
-        if autotune or autotune_opts is not None:
-            raise NotImplementedError(
-                f"RenderServer(autotune=...) is not ported yet (ROADMAP queue 1, item "
-                f"{ITEM_AUTOTUNE})"
-            )
         self.scenes = dict(scenes)
         self.device = resolve_device(device)
         self.scene_shards = scene_shards
         self.device_budget_mb = device_budget_mb
+        self.autotune = autotune
+        self.autotune_opts = autotune_opts
         self.stream_cache_frames = stream_cache_frames
         self.spec_depth = spec_depth
         self.speculate = speculate
@@ -205,6 +206,8 @@ class RenderServer:
 
                 handle = engine.open(
                     self.scenes[scene_id], cfg, device=self.device, residency=self.residency,
+                    tile_params="auto" if self.autotune else None,
+                    autotune_opts=self.autotune_opts,
                 )
                 self._renderers[key] = handle
             return handle

@@ -93,17 +93,5 @@ def fence(tree) -> None:
         torch.cuda.synchronize(dev)
 
 
-# ROADMAP queue 1 items whose entry points the port does not take yet.
+# The ROADMAP queue 1 item whose entry points the port does not take yet.
 ITEM_SHARDING = "8: sharding along the gaussian axis"
-ITEM_AUTOTUNE = "11: tile-parameter autotune"
-
-
-def not_ported(name: str, item: str):
-    """A stand-in for an entry point of the JAX package that the port has
-    not taken over yet: it raises, naming ROADMAP queue 1's ``item``."""
-
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue 1, item {item})")
-
-    fn.__name__ = fn.__qualname__ = name
-    return fn

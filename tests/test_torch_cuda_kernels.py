@@ -562,3 +562,34 @@ def test_server_with_eviction_bitwise_on_the_card(cuda_device):
             one = h.render(req.camera).image.cpu()
         assert torch.equal(got[req.request_id].image, one), req.request_id
         assert torch.equal(want[req.request_id].image, one), req.request_id
+
+
+def test_auto_tile_params_bitwise_like_the_fixed_winner_on_the_card(
+        cuda_device, tmp_path, monkeypatch):
+    """engine.open(tile_params='auto') on the card tunes on the card (the
+    cache signature names the card) and renders bitwise, image and
+    counters, like an open with the winner's triple fixed; the search
+    verified the winner against the base config, bitwise when only the
+    group or capacity moved (the kernels blend sequentially)."""
+    from repro_torch.autotune import autotune_signature, cache as at_cache
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    at_cache._clear()
+    scene, cam, _, _, _, _ = _case()
+    cfg = dataclasses.replace(CFG, backend="cuda")
+    opts = dict(tiles=(8, 16), group_factors=(2, 4), capacities=(512,), top_k=3,
+                warmup=1, reps=2, verify=True)
+    try:
+        with engine.open(scene, cfg, device=cuda_device, tile_params="auto",
+                         autotune_opts=opts) as ra:
+            auto = ra.render(cam)
+            tuned = ra.tile_params
+            sig = autotune_signature(scene, W, H, ra.cfg, cuda_device)
+            assert at_cache.lookup(sig) is not None
+        with engine.open(scene, cfg, device=cuda_device, tile_params=tuned) as rf:
+            fixed = rf.render(cam)
+    finally:
+        at_cache._clear()
+    assert sig[-1] == ("cuda", torch.cuda.get_device_name(cuda_device))
+    assert torch.equal(auto.image, fixed.image)
+    assert auto.stats.as_dict() == fixed.stats.as_dict()

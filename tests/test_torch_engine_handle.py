@@ -9,8 +9,8 @@ at 64x64:
   * the futures contract: a failing request resolves its own future and the
     next submit is bitwise equal to render; cancelled futures, worker
     crashes and close() terminate every future;
-  * the unported options raise, naming their ROADMAP item; residency and
-    streams, once unported, work;
+  * the unported options raise, naming their ROADMAP item; residency,
+    streams and tile-parameter autotune, once unported, work;
   * the serving queue and bucketing scheduler the handle is built on.
 
 Every partial bucket is forced out with flush(); no test waits out
@@ -477,18 +477,39 @@ def test_close_fails_futures_the_worker_never_resolved(scene, cfg):
 
 @pytest.mark.parametrize("option,item", [
     (dict(devices=2), "item 8"), (dict(mesh=object()), "item 8"),
-    (dict(tile_params="auto"), "item 11"),
-    (dict(autotune_opts={}), "item 11"),
+    pytest.param(dict(tile_params="auto"), None, id="option2-ported"),
+    pytest.param(dict(autotune_opts={}), None, id="option3-ported"),
     pytest.param(dict(residency="shared"), None, id="option4-ported"),
 ])
-def test_unported_open_options_raise(scene, cfg, option, item):
-    """The multi-device options raise naming item 8 and the autotune ones
-    item 11. ``residency=`` (once unported, item 11) commits through the
-    shared manager: two handles over one scene share one entry and one
+def test_unported_open_options_raise(scene, cfg, option, item, tmp_path, monkeypatch):
+    """The multi-device options raise naming item 8. ``tile_params='auto'``
+    (once unported, item 11) tunes at the first render and renders bitwise
+    like an open with the tuned triple fixed; ``autotune_opts`` alone
+    changes nothing. ``residency=`` (once unported, item 11) commits through
+    the shared manager: two handles over one scene share one entry and one
     device copy, and render bitwise like a private handle."""
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             _open(scene, cfg, **option)
+        return
+    if "residency" not in option:
+        from repro_torch.autotune import cache as at_cache
+
+        monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+        at_cache._clear()
+        opts = dict(tiles=(16,), group_factors=(2, 4), capacities=(256,),
+                    top_k=1, warmup=1, reps=1)
+        cam = _cam()
+        with _open(scene, cfg, **dict(option, autotune_opts=opts)) as r:
+            out = r.render(cam)
+            tuned = r.tile_params
+        if "tile_params" in option:
+            assert tuned in ((16, 32, 256), (16, 64, 256))
+        else:
+            assert tuned == (cfg.tile, cfg.group, cfg.tile_capacity)
+        with _open(scene, cfg, tile_params=tuned) as fixed:
+            _assert_bitwise(out, fixed.render(cam), "tuned vs fixed")
+        at_cache._clear()
         return
     from repro_torch.residency import ResidencyManager
 

@@ -3,8 +3,8 @@ the counterpart of ``repro.launch.render``) on the CPU at 1,200 gaussians,
 96x96, capacity 256: the printed counters equal an ``engine.open`` render of
 the same scene and config, the PPM is written, ``--trace-json`` writes a
 trace that validates with every stage span, ``--stats`` lists the
-``timed_stage`` cache, ``--autotune`` raises naming its ROADMAP item, and
-``configs.scene_and_camera`` gives the JAX helper's camera."""
+``timed_stage`` cache, ``--autotune`` prints the tuned triple and renders
+at it, and ``configs.scene_and_camera`` gives the JAX helper's camera."""
 from __future__ import annotations
 
 import json
@@ -91,9 +91,27 @@ def test_cli_repro_trace_env_times_tile_baseline(capsys, monkeypatch):
     assert "stage/rasterize" in out and "stage/bitmask" not in out
 
 
-def test_cli_autotune_raises_naming_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
+def test_cli_autotune_raises_naming_item_11(capsys, tmp_path, monkeypatch):
+    """--autotune (once unported, item 11): the first render tunes, the first
+    line names the triple, and the printed counters are an engine.open
+    render's at that triple."""
+    from repro_torch.autotune import cache as at_cache
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    at_cache._clear()
+    try:
         cli.main(SMALL + ["--autotune"])
+    finally:
+        at_cache._clear()
+    out = capsys.readouterr().out
+    triple = tuple(int(x) for x in re.search(r"tile_params=\((\d+), (\d+), (\d+)\)",
+                                             out).groups())
+    scene, cam = scene_and_camera("train", 1200, 96, 96, device="cpu")
+    cfg = RenderConfig(tile_capacity=256, group_capacity=256, span=6)
+    with engine.open(scene, cfg, device="cpu", tile_params=triple) as r:
+        stats = r.render(cam).stats.as_dict()
+    assert _printed_counters(out) == {key: stats[key] for key in PRINTED.values()}
+    assert (tmp_path / "at.json").exists()
 
 
 def test_scene_and_camera_matches_jax_helper():

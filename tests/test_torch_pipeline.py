@@ -253,18 +253,25 @@ def test_every_feature_gather_renders_alike(small_scene, backend):
 
 
 def test_core_exports_every_reference_name():
-    """Every name of repro.core.__all__ imports from repro_torch.core; the
-    one not ported yet raises, naming its ROADMAP item, and the deprecated
-    free functions are the pipeline's shims."""
+    """Every name of repro.core.__all__ imports from repro_torch.core;
+    ``frontend_stats`` (once unported, item 11) gives the JAX package's
+    counters by value, and the deprecated free functions are the pipeline's
+    shims."""
     import repro.core
     import repro_torch.core
+    from repro.autotune import stats_pass as jax_stats_pass
 
     missing = [name for name in repro.core.__all__ if name not in repro_torch.core.__all__]
     assert not missing, missing
     for name in repro.core.__all__:
         assert getattr(repro_torch.core, name) is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-        repro_torch.core.frontend_stats()
+    jscene = random_scene(jax.random.key(5), 400, extent=3.0)
+    cfg_kw = dict(SMALL_CFG, span=6)
+    got = repro_torch.core.frontend_stats(
+        scene_from_numpy(jscene, "cpu"), camera.make_camera(**SMALL_CAM),
+        pipeline.RenderConfig(**cfg_kw))
+    assert_counters_equal(got.as_dict(), jax_stats_pass(jscene, make_camera(**SMALL_CAM),
+                                                        JConfig(**cfg_kw)))
     assert repro_torch.core.render_jit is pipeline.render_jit
     assert repro_torch.core.render_image is pipeline.render_image
 
@@ -301,6 +308,7 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.launch.render, repro_torch.launch.render_serve\n"
         "import repro_torch.residency, repro_torch.engine.stream\n"
         "import repro_torch.serving.stats, repro_torch.serving.server\n"
+        "import repro_torch.autotune, repro_torch.autotune.cache, repro_torch.autotune.search\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
     )

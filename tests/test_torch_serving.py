@@ -10,7 +10,8 @@ poisson_arrivals, the serve CLI) against the JAX package's
     of the JAX server's and bitwise equal to the port's Renderer.render;
   * scene-sharded requests, committed-scene sharing across configs,
     backpressure, admission screening, the close-against-commit race;
-  * mesh= and autotune= raise naming their ROADMAP items; importing
+  * mesh= raises naming its ROADMAP item, autotune= serves the tuned
+    triple; importing
     repro_torch.serving imports no torch and starts no CUDA context;
   * the CLI in process on the CPU with --parity-check and a trace that
     passes the port's cross-checks.
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -327,11 +329,27 @@ def test_server_rejects_unservable_scene_shards(scene, cfg, single_thread):
         assert server.stats.rejected == 1
 
 
-def test_server_unported_options_raise(scene):
+def test_server_unported_options_raise(scene, cfg, tmp_path, monkeypatch):
+    """mesh= raises naming item 8. autotune= (once unported, item 11) opens
+    the handle with tile_params='auto', and the served image is bitwise the
+    render at the tuned triple."""
     with pytest.raises(NotImplementedError, match="item 8"):
         RenderServer({"scene": scene}, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        RenderServer({"scene": scene}, device="cpu", autotune=True)
+    from repro_torch.autotune import cache as at_cache
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    at_cache._clear()
+    cam = make_camera((0, 1, 4), (0, 0, 0), 64, 64)
+    opts = dict(tiles=(16,), group_factors=(2, 4), capacities=(256,), top_k=1,
+                warmup=1, reps=1)
+    with RenderServer({"scene": scene}, device="cpu", autotune=True,
+                      autotune_opts=opts) as server:
+        results = server.run([(0.0, RenderRequest(0, "scene", cam, cfg))], realtime=False)
+        tuned = server.commit("scene", cfg).tile_params
+    at_cache._clear()
+    assert isinstance(tuned, tuple)
+    with engine.open(scene, cfg, device="cpu", tile_params=tuned) as r:
+        assert torch.equal(results[0].image, r.render(cam).image)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             RenderServer({"scene": scene})
@@ -416,8 +434,22 @@ def test_render_serve_cli_in_process(tmp_path, capsys, extra, single_thread):
         assert counters["residency.evictions_total"] > 0
 
 
-def test_render_serve_cli_autotune_raises():
+def test_render_serve_cli_autotune_raises(tmp_path, capsys, monkeypatch, single_thread):
+    """--autotune (once unported, item 11): every handle tunes at its first
+    dispatch, the CLI names the tuned triples, and --parity-check holds
+    each image bitwise to a render at its scene's tuned triple."""
+    from repro_torch.autotune import cache as at_cache
     from repro_torch.launch.render_serve import main
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main(["--device", "cpu", "--autotune"])
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    at_cache._clear()
+    try:
+        rc = main(["--device", "cpu", "--autotune", "--gaussians", "300",
+                   "--resolutions", "64x64", "--requests", "4", "--max-batch", "2",
+                   "--no-realtime", "--parity-check"])
+    finally:
+        at_cache._clear()
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert re.search(r"autotuned 'train': tile_params=\(\d+, \d+, \d+\)", out), out
+    assert "parity-check: 4/4 bitwise equal" in out
