@@ -154,7 +154,31 @@ line each:
                 frame, the BGM also once a stats pass. Prints the winner's
                 frame time beside the main triple's, the search's wall
                 time cold and on a cache hit, and the phase's peak memory.
-  6. train    — scene training (core/train.py) on the main path's scene,
+     gateway  — the gateway tier (repro_torch.gateway) over train
+                (1,026,000) and truck (2,541,000) at 1952x1088, the serve
+                phase's config. In process: two InprocWorkers, train
+                pre-committed on w0 and truck on w1, each warmed once per
+                scene; 16 requests at once through RenderGateway.run, every
+                dispatch held until all 16 are routed (so routing cannot
+                race a finished dispatch) and w0 killed as its first
+                dispatch returns (so it still holds queued requests): every
+                request completes, a failover and retries served by w1,
+                every image bitwise a direct handle's render_batch lane
+                padded to 4, validate_gateway_trace clean, the BGM and the
+                fused RM once per rendered lane; p50/p99, req/s, dispatches
+                and completions per worker, the gateway's dispatch seconds
+                beside the servers' render_s. Then the gateway CLI in a
+                subprocess (--backend cuda, two subprocess workers,
+                1,026,000 gaussians a scene, --kill-worker auto
+                --kill-after 2 --parity-check): exit 0, failovers >= 1,
+                8/8 bitwise, a valid trace; each child's start-up seconds,
+                the round trips against the children's own latency, the
+                largest reply line. Then a checkpoint of the train scene
+                and an AdamW state saved synchronously from the card and
+                restored onto it: every leaf bitwise, and the restored
+                scene renders bitwise; file MB, write and read seconds,
+                whether zstandard was present.
+  6. train   — scene training (core/train.py) on the main path's scene,
                 camera and config, backend reference, outside inference
                 mode: the main path's image is the target, the scene is
                 perturbed (means + 0.08 N(0,1), opacity - 1, sh + 0.1
@@ -172,8 +196,9 @@ line each:
                 gradient max-abs within 1e-4 of its largest magnitude (the
                 CPU tests' bounds against the JAX package).
   7. kernels  — every ported kernel: launches on its path, on the sharded
-                path, in the serve phase's realtime run and over the
-                autotune phase, error, times,
+                path, in the serve phase's realtime run, over the
+                autotune phase and in the gateway's in-process run, error,
+                times,
                 bound, library time (torch.sort + gather for the bitonic
                 sort). The train phase launches none of them.
 
@@ -254,6 +279,10 @@ SERVE_TILE_REQUESTS = (2, 6, 10, 14)      # train requests in tile_baseline mode
 RESIDENCY_REQUESTS = 9
 ORBIT_POSES, ORBIT_FRAMES, DOLLY_FRAMES, DOLLY_STEP = 16, 24, 8, 0.25
 SERVE_CLI_GAUSSIANS = 200_000
+# gateway: two workers over train and truck at their paper sizes; the CLI's
+# two subprocess workers over both at the train size.
+GATEWAY_SCENES = ("train", "truck")
+GATEWAY_REQUESTS, GATEWAY_MAX_BATCH, GATEWAY_CLI_REQUESTS = 16, 4, 8
 LOSS_RTOL = 1e-4
 GRAD_TOL = 1e-4           # max-abs difference over the field's largest magnitude
 # autotune: the main frame's triple probed at rising spans (the smallest with
@@ -1271,6 +1300,258 @@ def autotune_phase(dev, on_card, check, smi, width: int, height: int,
     return launches
 
 
+def run_gateway_cli(dev, gaussians: int, width: int, height: int) -> dict:
+    """The gateway CLI in a subprocess on the card: two subprocess workers
+    over train and truck, w0 SIGKILLed once two requests completed, every
+    result held bitwise to a parent render (--parity-check); its trace and
+    metrics snapshot under build/repro_torch/."""
+    out_dir = ROOT / "build" / "repro_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    files = [out_dir / "gateway_trace.json", out_dir / "gateway_metrics.json"]
+    for f in files:
+        f.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.render_gateway", "--backend", "cuda",
+           "--device", dev.type, "--workers", "2", "--scenes", ",".join(GATEWAY_SCENES),
+           "--gaussians", str(gaussians), "--resolutions", f"{width}x{height}",
+           "--capacity", "8192", "--max-batch", "2", "--requests", str(GATEWAY_CLI_REQUESTS),
+           "--kill-worker", "auto", "--kill-after", "2", "--parity-check", "--no-realtime",
+           "--trace-json", str(files[0]), "--metrics-json", str(files[1])]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
+    docs = [json.loads(f.read_text()) if f.exists() else None for f in files]
+    return {"cmd": " ".join(cmd[1:]), "returncode": proc.returncode,
+            "wall_s": time.perf_counter() - t, "stdout": stdout,
+            "stderr_tail": stderr[-1500:], "trace": docs[0], "metrics": docs[1]}
+
+
+def gateway_phase(dev, on_card, check, smi, width: int, height: int, gaussians=None,
+                  cli_gaussians: int = MAIN_GAUSSIANS) -> dict:
+    """The gateway tier on the card (``gaussians`` and ``cli_gaussians``
+    shrink it for a rehearsal on the host): an in-process fleet of two
+    workers with a deterministic failover, the gateway CLI over two
+    subprocess workers with a real SIGKILL, and a checkpoint round trip of
+    the train scene with an AdamW state. Returns each kernel's launches in
+    the in-process run."""
+    import shutil
+
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import manager as ckpt_manager
+    from repro_torch.checkpoint.manager import tree_flatten, tree_unflatten
+    from repro_torch.configs import PAPER_SCENES
+    from repro_torch.core import RenderConfig, scene_like_paper
+    from repro_torch.core.gaussians import GaussianScene
+    from repro_torch.gateway import InprocWorker, RenderGateway
+    from repro_torch.kernels import build
+    from repro_torch.obs import Tracer, get_registry, set_tracer, validate_gateway_trace
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+    from repro_torch.serving import RenderRequest
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def counters():
+        return dict(get_registry().snapshot()["counters"])
+
+    t_phase = time.perf_counter()
+    cfg = RenderConfig(backend="cuda", **CFG_KW)
+    scenes = {sid: scene_like_paper(sid, gaussians or PAPER_SCENES[sid].paper_gaussians,
+                                    device=dev)
+              for sid in GATEWAY_SCENES}
+    cams = {sid: eval_cameras(PAPER_SCENES[sid].extent, SERVE_AZIMUTHS_DEG, width, height)
+            for sid in GATEWAY_SCENES}
+
+    # -- (a) two in-process workers, w0 killed as its first dispatch returns ---
+    workers = [InprocWorker(f"w{i}", scenes, device=dev, max_batch=GATEWAY_MAX_BATCH)
+               for i in range(2)]
+    warm_id = -1
+    for i, w in enumerate(workers):
+        w.commit(GATEWAY_SCENES[i], cfg)
+        for sid in GATEWAY_SCENES:
+            w.dispatch([RenderRequest(warm_id, sid, cams[sid][0], cfg)])
+            warm_id -= 1
+    sync()
+    gw = None
+
+    class Held:
+        """The worker, with every dispatch held until the gateway has routed
+        the whole load: routing (load-balanced, in-flight counted) then
+        cannot depend on a dispatch finishing first. ``die`` kills the
+        worker as its first dispatch returns, so it still holds the rest of
+        its share."""
+
+        def __init__(self, worker, die):
+            self.worker, self.die = worker, die
+
+        def __getattr__(self, name):
+            return getattr(self.worker, name)
+
+        def dispatch(self, requests):
+            deadline = time.monotonic() + 120
+            while gw.counts["routed"] < GATEWAY_REQUESTS and time.monotonic() < deadline:
+                time.sleep(0.001)
+            out = self.worker.dispatch(requests)
+            if self.die:
+                self.worker.kill()
+            return out
+
+    load = [(0.0, RenderRequest(i, GATEWAY_SCENES[i % 2],
+                                cams[GATEWAY_SCENES[i % 2]][(i // 2) % len(SERVE_AZIMUTHS_DEG)],
+                                cfg))
+            for i in range(GATEWAY_REQUESTS)]
+    batches = [w.server.stats.summary()["batches"] for w in workers]
+    render_s = [sum(b.render_s for b in w.server.stats.buckets.values()) for w in workers]
+    tracer = Tracer(enabled=True)
+    prev = set_tracer(tracer)
+    c0 = counters()
+    try:
+        build.reset_launches()
+        gw = RenderGateway([Held(workers[0], True), Held(workers[1], False)],
+                           retry_backoff_s=0.005)
+        results = gw.run(load)
+        launches = dict(build.LAUNCHES)
+        gw_counters = {k: v - c0.get(k, 0) for k, v in counters().items()}
+        doc = tracer.chrome_trace()
+    finally:
+        set_tracer(prev)
+    summary = gw.summary()
+    dispatch_s = [e.duration_s for e in tracer.events() if e.name == "gateway/dispatch"]
+    server_dispatches = [w.server.stats.summary()["batches"] - b
+                         for w, b in zip(workers, batches)]
+    server_render_s = [sum(b.render_s for b in w.server.stats.buckets.values()) - r
+                       for w, r in zip(workers, render_s)]
+    gw.close()
+    doc["summary"] = summary
+    trace_errors = validate_gateway_trace(doc, gw_counters)
+    lanes = GATEWAY_MAX_BATCH * sum(server_dispatches)
+    direct = {}
+    with engine.open(scenes["train"], cfg, device=dev) as h_train, \
+            engine.open(scenes["truck"], cfg, device=dev) as h_truck:
+        handles = {"train": h_train, "truck": h_truck}
+        for _, r in load:
+            key = (r.scene_id, id(r.camera))
+            if key not in direct:
+                direct[key] = handles[r.scene_id].render_batch(
+                    [r.camera], pad_to=GATEWAY_MAX_BATCH).image[0].cpu()
+    bitwise = [bool(torch.equal(results[r.request_id].image, direct[(r.scene_id, id(r.camera))]))
+               for _, r in load if r.request_id in results]
+    retried = sorted(rid for rid, r in results.items() if r.attempts > 1)
+    emit({"phase": "gateway", "check": "inproc", "nvidia_smi": smi, "width": width,
+          "height": height, "scenes": {k: s.num_gaussians for k, s in scenes.items()},
+          "config": CFG_KW, "max_batch": GATEWAY_MAX_BATCH, "requests": len(load),
+          "completed": summary["completed"], "failed": summary["failed"],
+          "retries": summary["retries"], "failovers": summary["failovers"],
+          "recommits": summary["recommits"], "retried": retried,
+          "retried_on": sorted({results[rid].worker_id for rid in retried}),
+          "p50_ms": summary["p50_ms"], "p99_ms": summary["p99_ms"],
+          "req_per_s": summary["fps"], "wall_s": summary["wall_s"],
+          "workers": summary["workers"],
+          "gateway_dispatch_s": dispatch_s, "server_dispatches": server_dispatches,
+          "server_render_s": server_render_s, "lanes_rendered": lanes,
+          "launches": launches, "bitwise_vs_direct": bitwise,
+          "trace_errors": trace_errors[:5]})
+    check(sorted(results) == list(range(len(load))) and summary["failed"] == 0,
+          f"gateway: completed {sorted(results)}, failed {summary['failed']}")
+    check(summary["failovers"] >= 1 and summary["retries"] >= 1 and retried
+          and all(results[rid].worker_id == "w1" for rid in retried),
+          f"gateway: failovers {summary['failovers']}, retries {summary['retries']}, "
+          f"retried {retried}")
+    check(len(bitwise) == len(load) and all(bitwise),
+          f"gateway: images differ from a direct handle's lane: {bitwise}")
+    check(not trace_errors, f"gateway: trace {trace_errors[:3]}")
+    if on_card:
+        check(launches["bitmask_gen"] == lanes and launches["raster_group_fused"] == lanes
+              and launches["raster_tile"] == 0,
+              f"gateway: launched {launches} for {lanes} rendered lanes")
+    for w in workers:
+        w.shutdown()
+    del workers, direct, results
+    sync()
+
+    # -- (b) the CLI: two subprocess workers on the card, a real SIGKILL --------
+    cli = run_gateway_cli(dev, cli_gaussians, width, height)
+    cli_doc, cli_snap = cli.pop("trace"), cli.pop("metrics")
+    cli_errors = (["no trace or metrics written"] if cli_doc is None or cli_snap is None
+                  else validate_gateway_trace(cli_doc, cli_snap["counters"]))
+    cli_summary = (cli_doc or {}).get("summary", {})
+    transport = cli_summary.get("transport", {})
+    hist = (cli_snap or {}).get("histograms", {}).get("gateway.dispatch_s", {})
+    wire = [d for t in transport.values() for d in t["dispatches"]]
+    lines = cli.pop("stdout").splitlines()
+    parity = [ln for ln in lines if ln.startswith("parity-check:")]
+    verdict = [ln for ln in lines if ln.startswith("render_gateway:")]
+    emit({"phase": "gateway", "check": "cli", "nvidia_smi": smi, **cli,
+          "gaussians": cli_gaussians, "parity": parity, "verdict": verdict,
+          "failovers": cli_summary.get("failovers"), "retries": cli_summary.get("retries"),
+          "completed": cli_summary.get("completed"), "p50_ms": cli_summary.get("p50_ms"),
+          "p99_ms": cli_summary.get("p99_ms"), "workers": cli_summary.get("workers"),
+          "startup_s": {wid: t["startup_s"] for wid, t in transport.items()},
+          "gateway_dispatch_s": {"count": hist.get("count"), "sum": hist.get("sum")},
+          "wire_s_sum": {k: sum(d[k] for d in wire) for k in (
+              "round_trip_s", "child_latency_s", "reply_wait_s", "transfer_s", "parse_s",
+              "decode_s")},
+          "largest_reply_bytes": max((d["line_bytes"] for d in wire), default=None),
+          "wire": transport, "trace_errors": cli_errors[:5]})
+    check(cli["returncode"] == 0, f"gateway: the CLI exited {cli['returncode']}: "
+                                  f"{cli['stderr_tail'][-500:]}")
+    n = GATEWAY_CLI_REQUESTS
+    check(cli_summary.get("failovers", 0) >= 1 and len(parity) == 1
+          and parity[0].startswith(f"parity-check: {n}/{n} bitwise-identical"),
+          f"gateway: the CLI reported failovers {cli_summary.get('failovers')}, {parity}")
+    check(not cli_errors, f"gateway: the CLI trace {cli_errors[:3]}")
+
+    # -- (c) a checkpoint of the train scene and an AdamW state -----------------
+    scene = scenes["train"]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    grads = GaussianScene(**{f.name: torch.randn(getattr(scene, f.name).shape, generator=gen,
+                                                 device=dev)
+                             for f in dataclasses.fields(GaussianScene)})
+    stepped, opt = adamw_update(scene, grads, adamw_init(scene), 0, lr=1e-3)
+    tree = {"scene": stepped, "opt": opt}
+    ckpt_dir = ROOT / "build" / "repro_torch" / "gateway_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt_dir), async_write=False)
+    sync()
+    t = time.perf_counter()
+    mgr.save(1, tree, extra={"scene": "train"})
+    write_s = time.perf_counter() - t
+    file_mb = os.path.getsize(mgr.latest().path) / 2**20
+    t = time.perf_counter()
+    leaves, manifest = mgr.restore(device=dev)
+    sync()
+    read_s = time.perf_counter() - t
+    want, _ = tree_flatten(tree)
+    leaf_equal = [bool(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b))
+                  for a, b in zip(want, leaves)]
+    restored = tree_unflatten(tree, leaves)
+    with engine.open(stepped, cfg, device=dev) as h:
+        img = h.render(cams["train"][0]).image
+    with engine.open(restored["scene"], cfg, device=dev) as h:
+        img_restored = h.render(cams["train"][0]).image
+    render_equal = bool(torch.equal(img, img_restored))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    emit({"phase": "gateway", "check": "checkpoint", "nvidia_smi": smi,
+          "gaussians": scene.num_gaussians, "leaves": len(leaves),
+          "zstandard": ckpt_manager.zstandard is not None, "file_mb": file_mb,
+          "write_s": write_s, "read_s": read_s, "leaf_bitwise": leaf_equal,
+          "render_bitwise": render_equal, "manifest_treedef": manifest["treedef"],
+          "phase_s": time.perf_counter() - t_phase})
+    check(len(leaves) == len(want) == 15 and all(leaf_equal),
+          f"gateway: checkpoint leaves differ {leaf_equal}")
+    check(render_equal, "gateway: the restored scene renders differently")
+    return launches
+
+
 def submit_breakdown(events) -> dict:
     """The handle's request spans of one set of submits, in ms per request
     (request order): queue (enqueue to bucket), batch wait (bucket to
@@ -2166,6 +2447,9 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     # -- autotune: tile parameters tuned for the main frame --------------------
     autotune_launches = autotune_phase(dev, on_card, check, smi, width, height)
 
+    # -- gateway: a worker fleet with failover, the gateway CLI, a checkpoint ---
+    gateway_launches = gateway_phase(dev, on_card, check, smi, width, height)
+
     # -- 6. scene training at the main path's size, outside inference mode ----
     with torch.inference_mode(False):
         train_phase(dev, on_card, check, cam, main_image.clone(), n_main, width, height)
@@ -2195,6 +2479,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
             "launches_sharded": sharded_launches[name],
             "launches_served": served_launches[name],
             "launches_autotune": autotune_launches[name],
+            "launches_gateway": gateway_launches[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": k.get("library_ms"),

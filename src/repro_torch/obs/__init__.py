@@ -5,8 +5,8 @@ Pure Python: importing ``repro_torch.obs`` imports neither torch nor jax.
 
   * ``repro_torch.obs.trace`` — a thread-safe :class:`Tracer` ring buffer of
     complete spans with Chrome trace-event JSON export (Perfetto-loadable)
-    and :func:`validate_chrome_trace`, with the residency and stream
-    span-against-counter cross-checks beside it.
+    and :func:`validate_chrome_trace`, with the residency, stream and
+    gateway span-against-counter cross-checks beside it.
   * ``repro_torch.obs.metrics`` — a :class:`MetricsRegistry` of named
     counters/gauges/reservoir histograms behind the port's stats surfaces
     (``Renderer.stats()``, the render-cache registry), exported as a
@@ -26,6 +26,7 @@ from repro_torch.obs.trace import (
     trace_env_enabled,
     trace_span,
     validate_chrome_trace,
+    validate_gateway_trace,
     validate_residency_trace,
     validate_stream_trace,
 )
@@ -49,6 +50,7 @@ __all__ = [
     "trace_env_enabled",
     "trace_span",
     "validate_chrome_trace",
+    "validate_gateway_trace",
     "validate_residency_trace",
     "validate_stream_trace",
     "Counter",

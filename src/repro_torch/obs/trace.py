@@ -378,6 +378,53 @@ def validate_stream_trace(doc: Any, counters: Dict[str, Any]) -> List[str]:
     return errs
 
 
+def validate_gateway_trace(doc: Any, counters: Dict[str, Any]) -> List[str]:
+    """Gateway cross-check (the port of ``scripts/validate_trace.py::validate_gateway``)
+    on a trace whose top-level ``"summary"`` holds ``RenderGateway.summary()``:
+    the trace is well formed; ``gateway/route|retry|failover`` spans equal
+    the ``gateway.routed|retries|failovers_total`` counters and the
+    summary's ``routed|retries|failovers``; the ``request`` spans' ids and
+    ``gateway.completed_total`` equal ``summary.completed``; a run with
+    failovers counted a worker death and has a ``gateway/retry`` span; and
+    the residency checks hold (in-process workers page in this process).
+    Returns the violations (empty = consistent)."""
+    errs = validate_chrome_trace(doc)
+    xs = _complete_events(doc)
+    summary = doc.get("summary", {})
+    spans: Dict[str, int] = {}
+    for e in xs:
+        if e.get("cat") == "gateway":
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    for name, counter, key in (
+        ("gateway/route", "gateway.routed_total", "routed"),
+        ("gateway/retry", "gateway.retries_total", "retries"),
+        ("gateway/failover", "gateway.failovers_total", "failovers"),
+    ):
+        n_span = spans.get(name, 0)
+        n_counter = counters.get(counter, 0)
+        n_summary = summary.get(key)
+        if not (n_span == n_counter == n_summary):
+            errs.append(
+                f"{name} spans = {n_span}, counters[{counter!r}] = "
+                f"{n_counter}, summary.{key} = {n_summary}: must agree")
+    req_ids = {e["args"]["request_id"] for e in xs
+               if e.get("cat") == "request" and e.get("name") == "request"}
+    completed = summary.get("completed")
+    for label, got in (
+        ("request spans in trace", len(req_ids)),
+        ("counters['gateway.completed_total']", counters.get("gateway.completed_total")),
+    ):
+        if got != completed:
+            errs.append(f"{label} = {got} but summary.completed = {completed}")
+    if summary.get("failovers", 0) > 0:
+        if counters.get("gateway.worker_deaths_total", 0) < 1:
+            errs.append("summary.failovers > 0 but "
+                        "counters['gateway.worker_deaths_total'] < 1")
+        if spans.get("gateway/retry", 0) < 1:
+            errs.append("summary.failovers > 0 but no gateway/retry spans")
+    return errs + validate_residency_trace(doc, counters)
+
+
 # -- process-wide tracer + ambient helpers ------------------------------------
 
 _global_lock = threading.Lock()

@@ -345,6 +345,8 @@ class RenderServer:
                 deadline_missed=missed,
             )
             stamps = req.stamps
+            if stamps is None:   # the gateway owns this request's spans
+                continue
             stamps["dispatch"] = t0
             stamps["device_done"] = t1
             stamps["resolve"] = self._clock()

@@ -593,3 +593,62 @@ def test_auto_tile_params_bitwise_like_the_fixed_winner_on_the_card(
     assert sig[-1] == ("cuda", torch.cuda.get_device_name(cuda_device))
     assert torch.equal(auto.image, fixed.image)
     assert auto.stats.as_dict() == fixed.stats.as_dict()
+
+
+def test_gateway_failover_bitwise_on_the_card(cuda_device):
+    """Two InprocWorkers on the card behind a RenderGateway, dispatches held
+    until all 8 requests are routed, w0 killed as its first dispatch
+    returns: every request completes, the retried ones on w1, each image
+    bitwise a direct handle's render_batch lane padded as a worker pads;
+    the BGM and the fused RM launch once per rendered lane."""
+    import time
+
+    from repro_torch.gateway import InprocWorker, RenderGateway
+    from repro_torch.serving import RenderRequest
+
+    scene, _, _, _, _, _ = _case()
+    other = random_scene(2000, extent=3.0, generator=torch.Generator().manual_seed(5))
+    scenes = {"a": scene.to(cuda_device), "b": other.to(cuda_device)}
+    cfg = dataclasses.replace(CFG, backend="cuda")
+    cams = camera.orbit_cameras(4, 5.0, W, H)
+    workers = [InprocWorker(f"w{i}", scenes, device=cuda_device, max_batch=2)
+               for i in range(2)]
+    for i, w in enumerate(workers):
+        for sid in "ab":
+            w.dispatch([RenderRequest(-1 - 2 * i - "ab".index(sid), sid, cams[0], cfg)])
+    batches = [w.server.stats.summary()["batches"] for w in workers]
+    gw = None
+
+    class Held:
+        def __init__(self, worker, die):
+            self.worker, self.die = worker, die
+
+        def __getattr__(self, name):
+            return getattr(self.worker, name)
+
+        def dispatch(self, requests):
+            deadline = time.monotonic() + 60
+            while gw.counts["routed"] < 8 and time.monotonic() < deadline:
+                time.sleep(0.001)
+            out = self.worker.dispatch(requests)
+            if self.die:
+                self.worker.kill()
+            return out
+
+    load = [(0.0, RenderRequest(i, "ab"[i % 2], cams[i % 4], cfg)) for i in range(8)]
+    build.reset_launches()
+    gw = RenderGateway([Held(workers[0], True), Held(workers[1], False)],
+                       retry_backoff_s=0.005)
+    res = gw.run(load)
+    launches = dict(build.LAUNCHES)
+    gw.close()
+    assert sorted(res) == list(range(8)) and not gw.failed, gw.failed
+    assert gw.counts["failovers"] == 1
+    retried = [r for r in res.values() if r.attempts > 1]
+    assert retried and all(r.worker_id == "w1" for r in retried)
+    lanes = 2 * sum(w.server.stats.summary()["batches"] - b for w, b in zip(workers, batches))
+    assert launches["bitmask_gen"] == lanes and launches["raster_group_fused"] == lanes
+    for _, req in load:
+        with engine.open(scenes[req.scene_id], cfg, device=cuda_device) as h:
+            one = h.render_batch([req.camera], pad_to=2).image[0].cpu()
+        assert torch.equal(res[req.request_id].image, one), req.request_id
