@@ -178,6 +178,31 @@ line each:
                 restored onto it: every leaf bitwise, and the restored
                 scene renders bitwise; file MB, write and read seconds,
                 whether zstandard was present.
+     mesh     — rendering over several devices, one process driving a
+                (data, model) mesh (launch/mesh.py). (a) Virtual devices:
+                the card listed four times as (4, 1), (2, 2) and (1, 4);
+                render_batch of the batch phase's four cameras at the main
+                frame bitwise (image and counters) the one-device handle's,
+                a model axis committing 'psum' with physical_shards equal
+                to it and the JAX formula's feature_mb_per_device, the BGM
+                and the fused RM once a lane; an 'auto' open over the four
+                under a budget of 1.2 x half the full model escalating to a
+                physical psum commit; a RenderServer over (2, 1) and a
+                stream frame on (2, 2) bitwise their renders; the lossless
+                frame in tile_baseline over (2, 2) bitwise one device's
+                (the tile RM once). Batch ms beside the one-device batch:
+                virtual devices share the card, so these are not multi-card
+                numbers. (b) A mixed (1, 2) mesh over [card, host] on the
+                lossless frame: shard 1's frontend on the host, the psum
+                copying its contribution to the card; no device mismatch,
+                'psum' bitwise 'index', the image bitwise the card's
+                backend over the same features moved to the card, and
+                within 1e-4 of the one-card D = 2 render unless the host
+                projected shard 1 other than the card (ulps: an alpha
+                can cross 1/255), both frames' counters and the
+                differing projection elements printed. (c) With two or more
+                cards, (a) over distinct cards, not gated; with one, a line
+                saying so.
   6. train   — scene training (core/train.py) on the main path's scene,
                 camera and config, backend reference, outside inference
                 mode: the main path's image is the target, the scene is
@@ -197,8 +222,9 @@ line each:
                 CPU tests' bounds against the JAX package).
   7. kernels  — every ported kernel: launches on its path, on the sharded
                 path, in the serve phase's realtime run, over the
-                autotune phase and in the gateway's in-process run, error,
-                times,
+                autotune phase, in the gateway's in-process run and on the
+                mesh phase's (2, 2) mesh (its batch and tile_baseline
+                frame), error, times,
                 bound, library time (torch.sort + gather for the bitonic
                 sort). The train phase launches none of them.
 
@@ -1552,6 +1578,255 @@ def gateway_phase(dev, on_card, check, smi, width: int, height: int, gaussians=N
     return launches
 
 
+def mesh_phase(dev, on_card, check, smi, width: int, height: int, n_main: int,
+               n_lossless: int) -> dict:
+    """Rendering over several devices (``launch/mesh.py``), at the main
+    frame and the lossless frame of this run's sizes.
+
+    (a) Virtual meshes: ``[dev] * 4`` as (data, model) = (4, 1), (2, 2) and
+    (1, 4). Each renders the batch phase's four cameras through
+    ``render_batch``, bitwise (image and counters) the one-device handle's;
+    a model axis commits 'psum' with ``physical_shards`` equal to it and the
+    JAX formula's ``feature_mb_per_device``; the BGM and the fused RM launch
+    once a lane. An ``'auto'`` open over the four virtual devices under a
+    budget of 1.2 x half the full model escalates to a physical commit. A
+    RenderServer over a (2, 1) mesh and a stream frame on a (2, 2) handle
+    are bitwise their renders, and the lossless frame in tile_baseline on
+    the (2, 2) mesh is bitwise one device's (the tile RM once). (b) A mixed
+    (1, 2) mesh over ``[dev, cpu]`` on the lossless frame: shard 1's
+    frontend runs on the host and the psum copies its contribution to the
+    card; 'psum' and 'index' bitwise alike there, the image within 1e-4 of
+    the one-card D = 2 render where the host projected shard 1 as the card
+    does (counters and the differing projection elements printed: the
+    host's projection may differ by ulps), and in any case bitwise the
+    card's backend over the same features moved to the card. (c) With two cards or more, (a)'s meshes over distinct
+    cards (not gated). Returns the launches of the (2, 2) mesh's batch and
+    tile_baseline frame."""
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.configs import PAPER_SCENES, scene_and_camera
+    from repro_torch.core import RenderConfig, make_camera, render, scene_like_paper
+    from repro_torch.core.pipeline import render_backend
+    from repro_torch.core.projection import ShardedProjected, projected_bytes_per_gaussian
+    from repro_torch.core.stages import get_backend
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_render_mesh
+    from repro_torch.serving import RenderRequest
+    from repro_torch.serving.server import RenderServer
+    from repro_torch.utils import pytree_bytes, tree_map
+
+    def sync():
+        if on_card:
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
+
+    def bitwise(out, want) -> bool:
+        return bool(torch.equal(out.image.to(want.image.device), want.image)) and all(
+            torch.equal(getattr(out.stats, f.name).to(want.image.device),
+                        getattr(want.stats, f.name))
+            for f in dataclasses.fields(out.stats))
+
+    def batch_ms(handle, cams):
+        """Median of 3 render_batch calls after a warm-up, host clock to
+        synchronize every card."""
+        handle.render_batch(cams)
+        sync()
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            handle.render_batch(cams)
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    t_phase = time.perf_counter()
+    spec = PAPER_SCENES["train"]
+    cfg = RenderConfig(backend="cuda", **CFG_KW)
+    scene, _ = scene_and_camera("train", n_main, width, height, device=dev)
+    cams = eval_cameras(spec.extent, BATCH_AZIMUTHS_DEG, width, height)
+    with engine.open(scene, cfg, device=dev) as one:
+        want = one.render_batch(cams)
+        one_ms = batch_ms(one, cams)
+    n_pad = {m: -(-scene.num_gaussians // m) * m for m in (1, 2, 4)}
+
+    def virtual_meshes(devices, shapes, gated):
+        out = {}
+        for data, model in shapes:
+            mesh = make_render_mesh(devices[: data * model], scene_shards=model)
+            name = f"{data}x{model}"
+            with engine.open(scene, cfg, mesh=mesh, scene_shards=model) as h:
+                build.reset_launches()
+                got = h.render_batch(cams)
+                sync()
+                launches = dict(build.LAUNCHES)
+                hs = h.stats()
+                ms = batch_ms(h, cams)
+            want_mb = n_pad[model] * projected_bytes_per_gaussian() / 2**20 / model
+            row = {"bitwise_vs_one_device": bitwise(got, want), "batch_ms": ms,
+                   "feature_gather": hs["feature_gather"],
+                   "physical_shards": hs["physical_shards"],
+                   "feature_mb_per_device": hs["feature_mb_per_device"],
+                   "feature_mb_want": want_mb, "launches": launches}
+            out[name] = row
+            del got
+            if not gated:
+                continue
+            check(row["bitwise_vs_one_device"], f"mesh: {name} batch is not bitwise one device's")
+            check(row["physical_shards"] == model
+                  and row["feature_gather"] == ("psum" if model > 1 else "flat"),
+                  f"mesh: {name} committed {row['physical_shards']} shards, "
+                  f"{row['feature_gather']}")
+            check(abs(row["feature_mb_per_device"] - want_mb) <= 1e-9,
+                  f"mesh: {name} feature_mb_per_device {row['feature_mb_per_device']} "
+                  f"!= {want_mb}")
+            check(launches["bitmask_gen"] == launches["raster_group_fused"] == len(cams),
+                  f"mesh: {name} launched {launches}")
+        return out
+
+    # -- (a) virtual devices: the one card listed four times -----------------
+    shapes = ((4, 1), (2, 2), (1, 4))
+    virtual = virtual_meshes([dev] * 4, shapes, gated=True)
+    full_mb = pytree_bytes(scene) / 2**20 + n_pad[1] * projected_bytes_per_gaussian() / 2**20
+    budget = 1.2 * full_mb / 2
+    with engine.open(scene, RenderConfig(backend="cuda", **CFG_KW), devices=[dev] * 4,
+                     device_budget_mb=budget) as h:
+        hs = h.stats()
+        escalated = {"physical_shards": hs["physical_shards"],
+                     "feature_gather": hs["feature_gather"], "mesh": hs["mesh"],
+                     "budget_mb": budget, "frame_bitwise": bitwise(
+                         h.render_batch(cams[:1]), want.map(lambda x: x[:1]))}
+    check(escalated["physical_shards"] >= 2 and escalated["feature_gather"] == "psum"
+          and escalated["frame_bitwise"], f"mesh: budget escalation {escalated}")
+    mesh21 = make_render_mesh([dev] * 2)
+    with RenderServer({"train": scene}, mesh=mesh21, max_batch=len(cams)) as server:
+        served = server.run([(0.0, RenderRequest(i, "train", c, cfg))
+                             for i, c in enumerate(cams)], realtime=False)
+        served_summary = server.stats.summary()
+    served_ok = [bool(torch.equal(served[i].image, want.image[i].cpu()))
+                 for i in range(len(cams))]
+    check(all(served_ok) and served_summary["batches"] == 1,
+          f"mesh: RenderServer over (2, 1) {served_ok}, {served_summary['batches']} batches")
+    mesh22 = make_render_mesh([dev] * 4, scene_shards=2)
+    with engine.open(scene, cfg, mesh=mesh22, scene_shards=2) as h, \
+            h.open_stream(speculate=False) as stream:
+        frames = [stream.render(cams[0]), stream.render(cams[0])]
+        stream_ok = [bitwise(f, want.map(lambda x: x[0])) for f in frames]
+        stream_hits = stream.stats()["hits"]
+    check(all(stream_ok) and stream_hits == 1, f"mesh: stream over (2, 2) {stream_ok}")
+    del scene, frames, served
+
+    # The lossless frame: tile_baseline over (2, 2), and the mixed mesh.
+    eye_l = (0.0, spec.extent * 0.7, spec.extent * 3.0)
+    cam_l = make_camera(eye_l, (0, 0, 0), width, height, fov_x_deg=62.0)
+    scene_l = scene_like_paper("train", n_lossless, device=dev)
+    tile_cfg = dataclasses.replace(cfg, mode="tile_baseline")
+    tile_one = render(scene_l, cam_l, tile_cfg)
+    with engine.open(scene_l, tile_cfg, mesh=mesh22, scene_shards=2) as h:
+        build.reset_launches()
+        tile_mesh = h.render(cam_l)
+        sync()
+        tile_launches = dict(build.LAUNCHES)
+    tile_ok = bitwise(tile_mesh, tile_one)
+    check(tile_ok and tile_launches["raster_tile"] == 1,
+          f"mesh: tile_baseline over (2, 2) bitwise {tile_ok}, launches {tile_launches}")
+    path = {k: virtual["2x2"]["launches"][k] + tile_launches[k] for k in build.LAUNCHES}
+
+    # -- (b) a mixed mesh: the card and the host ---------------------------------
+    host = torch.device("cpu")
+    mixed = make_render_mesh([dev, host], scene_shards=2)
+    two = dataclasses.replace(cfg, scene_shards=2)
+    card_two = render(scene_l, cam_l, two)
+    outs, error = {}, None
+    try:
+        for gather in ("psum", "index"):
+            with engine.open(scene_l, dataclasses.replace(two, feature_gather=gather),
+                             mesh=mixed) as h:
+                t = time.perf_counter()
+                outs[gather] = h.render(cam_l)
+                sync()
+                outs[gather + "_ms"] = (time.perf_counter() - t) * 1e3
+                if gather != "psum":
+                    continue
+                placed = [str(h.committed_scene.shard(d).device) for d in range(2)]
+                # The same features with both shards on the card: the host
+                # part's gathers and copies must give the card's bits.
+                front = h.render_frontend(cam_l)
+                carded = dataclasses.replace(front, proj=ShardedProjected(
+                    shards=tuple(tree_map(lambda x: x.to(dev), p) for p in front.proj.shards),
+                    gather="psum"))
+                outs["card_backend"] = render_backend(carded, cam_l, h.cfg)
+                # Shard 1 projected on the card, against the host's bits.
+                card_proj = get_backend("cuda").project(h.committed_scene.shard(1).to(dev),
+                                                        cam_l)
+                host_proj = front.proj.shards[1]
+                drift = {}
+                for f in dataclasses.fields(card_proj):
+                    x, y = getattr(host_proj, f.name).to(dev), getattr(card_proj, f.name)
+                    if x.dtype != torch.bool:
+                        x, y = x.view(torch.int32), y.view(torch.int32)
+                    drift[f.name] = int((x != y).sum())
+                del front, carded, card_proj, host_proj
+    except Exception as e:          # noqa: BLE001 — reported and gated below
+        error = f"{type(e).__name__}: {e}"
+    mixed_row = {"error": error}
+    if error is None:
+        psum, index = outs["psum"], outs["index"]
+        mixed_row.update({
+            "shard_devices": placed, "image_device": str(psum.image.device),
+            "psum_bitwise_index": bitwise(psum, index),
+            "bitwise_vs_card_backend_same_features": bitwise(psum, outs["card_backend"]),
+            "host_vs_card_projection_differing_elements": drift,
+            "max_abs_vs_one_card_d2": float((psum.image - card_two.image).abs().max()),
+            "frame_ms": {"psum": outs["psum_ms"], "index": outs["index_ms"]},
+            "counters_mixed": psum.stats.as_dict(),
+            "counters_one_card_d2": card_two.stats.as_dict(),
+        })
+        mixed_row["counters_differ"] = sorted(
+            k for k, v in mixed_row["counters_mixed"].items()
+            if v != mixed_row["counters_one_card_d2"][k])
+    check(error is None, f"mesh: mixed (1, 2) mesh raised {error}")
+    if error is None:
+        check(mixed_row["psum_bitwise_index"], "mesh: mixed mesh psum and index differ")
+        check(mixed_row["bitwise_vs_card_backend_same_features"],
+              "mesh: mixed mesh image is not the card's backend over the same features")
+        # Against one card's D = 2 frame the host's projection drift (ulps,
+        # ROADMAP queue 3) can move an alpha across 1/255; only where the
+        # host projected shard 1 bit for bit as the card does must the image
+        # hold 1e-4.
+        drifted = sum(drift.values()) > 0
+        check(drifted or mixed_row["max_abs_vs_one_card_d2"] <= IMAGE_TOL,
+              f"mesh: mixed mesh image {mixed_row['max_abs_vs_one_card_d2']} from one card's "
+              f"with no projection drift")
+
+    # -- (c) several cards, where the machine has them ----------------------------
+    n_cards = torch.cuda.device_count() if on_card else 0
+    if n_cards >= 2:
+        cards = [torch.device("cuda", i) for i in range(min(n_cards, 4))]
+        multi_note = f"{len(cards)} cards"
+        try:                    # reported, never gated
+            scene, _ = scene_and_camera("train", n_main, width, height, device=dev)
+            multi = virtual_meshes(cards, shapes if len(cards) == 4 else ((2, 1), (1, 2)),
+                                   gated=False)
+            del scene
+        except Exception as e:  # noqa: BLE001
+            multi = {"error": f"{type(e).__name__}: {e}"}
+    else:
+        multi, multi_note = None, (f"did not run: {n_cards} card(s) visible; "
+                                   f"peer copies between cards are unverified")
+    emit({"phase": "mesh", "nvidia_smi": smi, "gaussians": n_main,
+          "lossless_gaussians": n_lossless, "width": width, "height": height,
+          "note": "virtual devices share one card: their batch_ms are not multi-card numbers",
+          "one_device_batch_ms": one_ms, "virtual": virtual, "escalation": escalated,
+          "server_2x1": {"bitwise": served_ok, "batches": served_summary["batches"],
+                         "padded": served_summary["padded"]},
+          "stream_2x2": {"bitwise": stream_ok, "hits": stream_hits},
+          "tile_baseline_2x2": {"bitwise": tile_ok, "launches": tile_launches},
+          "mixed_1x2": mixed_row, "multi_card": multi, "multi_card_note": multi_note,
+          "launches_2x2": path, "phase_s": time.perf_counter() - t_phase})
+    return path
+
+
 def submit_breakdown(events) -> dict:
     """The handle's request spans of one set of submits, in ms per request
     (request order): queue (enqueue to bucket), batch wait (bucket to
@@ -2450,6 +2725,9 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     # -- gateway: a worker fleet with failover, the gateway CLI, a checkpoint ---
     gateway_launches = gateway_phase(dev, on_card, check, smi, width, height)
 
+    # -- mesh: rendering over several devices (virtual, mixed, several cards) ---
+    mesh_launches = mesh_phase(dev, on_card, check, smi, width, height, n_main, n_lossless)
+
     # -- 6. scene training at the main path's size, outside inference mode ----
     with torch.inference_mode(False):
         train_phase(dev, on_card, check, cam, main_image.clone(), n_main, width, height)
@@ -2480,6 +2758,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
             "launches_served": served_launches[name],
             "launches_autotune": autotune_launches[name],
             "launches_gateway": gateway_launches[name],
+            "launches_mesh": mesh_launches[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": k.get("library_ms"),

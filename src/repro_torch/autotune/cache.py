@@ -25,8 +25,10 @@ or looked up for, so ``Renderer.close()`` drops its handle's entries
 A signature hashes geometry, not parameter values: the tuned trade-off
 depends on how many gaussians cover how many pixels, so a retrained scene
 of the same size reuses the tune. Its last field is the device the search
-ran on (its type, and the card's name on CUDA), where the JAX package keys
-on the mesh: a tune made on the CPU never serves the card.
+ran on (its type, and the card's name on CUDA; a mesh's lead device), and
+beside it the mesh's shape when the mesh has more than one device, where
+the JAX package keys on the mesh alone: a tune made on the CPU never serves
+the card.
 """
 from __future__ import annotations
 
@@ -72,18 +74,25 @@ def _device_key(device) -> tuple:
 
 
 def autotune_signature(scene, width: int, height: int, cfg: RenderConfig,
-                       device=None) -> tuple:
+                       device=None, mesh=None) -> tuple:
     """The cache key: (scene geometry, resolution, config, device).
 
     Scene geometry is the gaussian count (and the shard layout of a
     pre-sharded scene). The config gives every knob that changes which
     candidate wins, except the swept ones (tile, group, tile_capacity: the
     result, not the key) and group_capacity, which the search derives from
-    them. ``device`` defaults to the scene's."""
+    them. ``device`` defaults to the scene's, or to the lead device of
+    ``mesh``, whose shape joins the device field when it has more than one
+    device."""
     if isinstance(scene, ShardedScene):
         geom = ("sharded", scene.num_shards, scene.shard_size)
     else:
         geom = ("scene", int(scene.num_gaussians))
+    if device is None:
+        device = mesh.lead(0) if mesh is not None else tree_device(scene)
+    where = _device_key(device)
+    if mesh is not None and mesh.size > 1:
+        where += tuple(sorted(dict(mesh.shape).items()))
     return (
         geom,
         int(width), int(height),
@@ -91,7 +100,7 @@ def autotune_signature(scene, width: int, height: int, cfg: RenderConfig,
         cfg.boundary_group, cfg.boundary_tile,
         cfg.span, cfg.chunk, cfg.early_exit,
         cfg.scene_shards, cfg.feature_gather,
-        _device_key(device if device is not None else tree_device(scene)),
+        where,
     )
 
 

@@ -26,7 +26,8 @@ base config after a fresh search. Selecting the triple through
 ``tile_params='auto'`` always renders bitwise like committing it fixed.
 
 Everything runs on the search's ``device``: CUDA unless the caller names
-another, never a quiet fallback.
+another, never a quiet fallback; or, for a handle's ``tile_params='auto'``,
+over the handle's mesh.
 """
 from __future__ import annotations
 
@@ -182,17 +183,19 @@ def measure_phase(
     device=None,
     warmup: int = 1,
     reps: int = 3,
+    mesh=None,
 ) -> dict:
     """Median wall time (ms) per candidate through the production path: a
-    handle committed on ``device`` renders ``warmup`` frames, then ``reps``
-    timed ones, each fenced (``torch.cuda.synchronize`` on CUDA). Each
-    handle is closed before the next opens, so the search holds one extra
-    device copy of the scene at most."""
+    handle committed on ``device`` (or over ``mesh``) renders ``warmup``
+    frames, then ``reps`` timed ones, each fenced (``torch.cuda.synchronize``
+    on every card of the frame). Each handle is closed before the next
+    opens, so the search holds one extra copy of the scene at most."""
     from repro_torch import engine
 
+    where = {"mesh": mesh} if mesh is not None else {"device": device}
     out = {}
     for cand in candidates:
-        with engine.open(scene, config_for(base_cfg, cand), device=device) as r:
+        with engine.open(scene, config_for(base_cfg, cand), **where) as r:
             for _ in range(max(warmup, 1)):
                 fence(r.render(cam).image)
             times = []
@@ -210,6 +213,7 @@ def autotune(
     base_cfg: RenderConfig,
     *,
     device=None,
+    mesh=None,
     tiles: Sequence[int] = DEFAULT_TILES,
     group_factors: Sequence[int] = DEFAULT_GROUP_FACTORS,
     capacities: Sequence[int] = DEFAULT_CAPACITIES,
@@ -222,7 +226,9 @@ def autotune(
     verify: bool = False,
 ) -> AutotuneResult:
     """The two-phase search for one (scene, camera, config) commit on
-    ``device`` (CUDA unless the caller names another).
+    ``device`` (CUDA unless the caller names another) or over ``mesh`` (a
+    handle's: the stats passes run on its lead device, the measured frames
+    and the verify through handles over the mesh).
 
     ``top_k=None`` measures every feasible candidate (the sweep); otherwise
     the k best by modelled cost. With ``use_cache`` the signature is looked
@@ -231,8 +237,10 @@ def autotune(
     base config once and checks the losslessness guarantee (bitwise when
     the tile is unchanged, allclose at 1e-5 across tiles).
     """
-    dev = resolve_device(device)
-    sig = autotune_signature(scene, cam.width, cam.height, base_cfg, dev)
+    if device is not None and mesh is not None:
+        raise ValueError("pass device or mesh, not both")
+    dev = mesh.lead(0) if mesh is not None else resolve_device(device)
+    sig = autotune_signature(scene, cam.width, cam.height, base_cfg, dev, mesh)
     if use_cache:
         hit = lookup(sig, scene=scene)
         if hit is not None:
@@ -267,7 +275,7 @@ def autotune(
 
     measured = measure_phase(
         scene, cam, base_cfg, [cand_of(e) for e in survivors],
-        device=dev, warmup=warmup, reps=reps,
+        device=dev, warmup=warmup, reps=reps, mesh=mesh,
     )
     for e in survivors:
         e["measured_ms"] = measured[cand_of(e)]
@@ -282,7 +290,7 @@ def autotune(
         trajectory=entries,
     )
     if verify:
-        _verify_lossless(scene, cam, base_cfg, result.candidate, dev)
+        _verify_lossless(scene, cam, base_cfg, result.candidate, dev, mesh)
     if use_cache:
         store(
             sig,
@@ -306,7 +314,8 @@ def sweep(scene, cam, base_cfg: RenderConfig, **kw) -> AutotuneResult:
     return autotune(scene, cam, base_cfg, use_cache=False, persist=False, **kw)
 
 
-def _verify_lossless(scene, cam, base_cfg: RenderConfig, cand: Candidate, device) -> None:
+def _verify_lossless(scene, cam, base_cfg: RenderConfig, cand: Candidate, device,
+                     mesh=None) -> None:
     """Check the knobs' losslessness for this scene, winner against base
     config through the same handle path: bitwise when the tile is unchanged
     (group and capacity reorder nothing), allclose at 1e-5 across tiles (fp
@@ -314,9 +323,10 @@ def _verify_lossless(scene, cam, base_cfg: RenderConfig, cand: Candidate, device
     the other."""
     from repro_torch import engine
 
+    where = {"mesh": mesh} if mesh is not None else {"device": device}
     images = []
     for cfg in (base_cfg, config_for(base_cfg, cand)):
-        with engine.open(scene, cfg, device=device) as r:
+        with engine.open(scene, cfg, **where) as r:
             images.append(r.render(cam).image.cpu())
     a, b = images
     if cand.tile == base_cfg.tile:

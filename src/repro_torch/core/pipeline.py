@@ -23,7 +23,9 @@ With ``scene_shards = D > 1`` (or a ``ShardedScene``) the frontend runs per
 shard of the gaussian axis and merges the D bin tables with a stable sort
 (``core/grouping.py::merge_bin_tables``); image and every counter are
 bitwise those of D = 1 (DESIGN.md §10). On one device the shard axis is
-logical.
+logical; a scene placed over a mesh's ``'model'`` axis has one shard a
+device, and each shard's frontend runs on its device
+(``_sharded_frontend``).
 
 With ``timing=True`` every stage runs fenced through
 ``core/stages.py::TimedBackend`` and records a ``stage/<name>`` span;
@@ -318,9 +320,16 @@ def _sharded_frontend(backend: Backend, scene: ShardedScene, cam, grid: GridSpec
     Downstream gathers decompose it into (shard, local) (``proj_take``)
     unless ``gather`` is ``'flat'``, which hands on the padded flat view.
 
+    A physical scene (one shard a device) runs each shard's frontend on its
+    own device; its table, merge keys and counters are copied to the lead
+    device (shard 0's), where the merge runs once, and its features stay
+    where they were made. Nothing here waits on the host, so the devices'
+    work overlaps.
+
     Returns ``(proj, table, (n_candidate_tests, n_pairs, n_span_overflow))``
     with the counters summed over shards in int64."""
     D, Ns = scene.num_shards, scene.shard_size
+    lead = scene.device
     projs, tables, depths, counts = [], [], [], []
     for d in range(D):
         proj = backend.project(scene.shard(d), cam)
@@ -330,11 +339,14 @@ def _sharded_frontend(backend: Backend, scene: ShardedScene, cam, grid: GridSpec
             valid = table.entry_valid
             # The merge keys, gathered from the shard's own rows: bitwise
             # the flat proj.depth[global index].
-            depths.append(torch.where(valid, proj.depth[table.gauss_idx.long()], float("inf")))
-            tables.append(dataclasses.replace(
-                table, gauss_idx=torch.where(valid, table.gauss_idx + d * Ns, 0)))
+            depths.append(torch.where(valid, proj.depth[table.gauss_idx.long()],
+                                      float("inf")).to(lead))
+            tables.append(BinTable(
+                gauss_idx=torch.where(valid, table.gauss_idx + d * Ns, 0).to(lead),
+                entry_valid=valid.to(lead), lengths=table.lengths.to(lead),
+                overflow=table.overflow.to(lead)))
         counts.append(torch.stack([pairs.n_candidate_tests, pairs.n_pairs,
-                                   pairs.n_span_overflow]).to(torch.int64))
+                                   pairs.n_span_overflow]).to(torch.int64).to(lead))
         projs.append(proj)
         del pairs     # this shard's candidates go before the next shard's are made
     with torch.no_grad():
@@ -343,16 +355,18 @@ def _sharded_frontend(backend: Backend, scene: ShardedScene, cam, grid: GridSpec
             for f in dataclasses.fields(BinTable)
         })
         table = backend.merge(stacked, torch.stack(depths))
-    shards = Projected(**{
-        f.name: torch.stack([getattr(p, f.name) for p in projs])
-        for f in dataclasses.fields(Projected)
-    })
     if gather == "flat":
         proj = Projected(**{
-            f.name: getattr(shards, f.name).flatten(0, 1) for f in dataclasses.fields(Projected)
+            f.name: torch.cat([getattr(p, f.name).to(lead) for p in projs])
+            for f in dataclasses.fields(Projected)
         })
+    elif scene.physical:
+        proj = ShardedProjected(shards=tuple(projs), gather=gather)
     else:
-        proj = ShardedProjected(shards=shards, gather=gather)
+        proj = ShardedProjected(shards=Projected(**{
+            f.name: torch.stack([getattr(p, f.name) for p in projs])
+            for f in dataclasses.fields(Projected)
+        }), gather=gather)
     return proj, table, tuple(torch.sum(torch.stack(counts), dim=0))
 
 

@@ -8,6 +8,7 @@ color from SH, and the frustum-culling validity mask.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple, Union
 
 import torch
 
@@ -68,40 +69,64 @@ def projected_bytes_per_gaussian() -> int:
 class ShardedProjected:
     """Projected features kept in the per-shard layout (DESIGN.md §12).
 
-    ``shards`` holds the ordinary :class:`Projected` tensors with a leading
-    ``(D, Ns)`` shard axis: the per-shard projections stacked, never
-    flattened to the padded ``(D * Ns, ...)`` view. ``gather`` selects how a
-    consumer fetches an entry's features from its owning shard:
+    ``shards`` holds either the ordinary :class:`Projected` tensors with a
+    leading ``(D, Ns)`` shard axis (the per-shard projections stacked on
+    one device, never flattened to the padded ``(D * Ns, ...)`` view), or a
+    tuple of D ``Projected``, each on its shard's device (the physical
+    form, a scene placed over a mesh's ``'model'`` axis). ``gather``
+    selects how a consumer fetches an entry's features from its owning
+    shard:
 
       * ``'index'`` — the plain 2-D indexed gather ``field[shard, local]``;
+        on the physical form each shard gathers what it owns on its device
+        and the lead device selects the owner's values;
       * ``'psum'``  — owner-masked per-shard gathers summed over the shard
         axis on the raw bit patterns (exactly one shard owns each entry, so
-        the integer sum is the owner's bits): the form a multi-GPU commit
-        turns into an all-reduce. Inference only: it refuses to record a
-        gradient.
+        the integer sum is the owner's bits). On the physical form each
+        shard gathers on its own device and the D contributions are summed
+        on the lead device: the reduce of a several-device commit.
+        Inference only: it refuses to record a gradient.
 
     Both are bitwise the flat gather ``concat(shards)[global_idx]``:
     ``flat[g] == shards[g // Ns, g % Ns]``.
     """
 
-    shards: Projected        # every field with leading (D, Ns) axes
+    shards: Union[Projected, Tuple[Projected, ...]]
     gather: str = "index"    # 'index' | 'psum'
 
     @property
+    def physical(self) -> bool:
+        return isinstance(self.shards, tuple)
+
+    @property
     def num_shards(self) -> int:
+        if self.physical:
+            return len(self.shards)
         return self.shards.depth.shape[0]
 
     @property
     def shard_size(self) -> int:
+        if self.physical:
+            return self.shards[0].depth.shape[0]
         return self.shards.depth.shape[1]
 
     @property
     def valid(self) -> torch.Tensor:
-        """(D, Ns) cull mask: reductions over it equal the flat ones."""
+        """(D, Ns) cull mask of the stacked form: reductions over it equal
+        the flat ones (``proj_valid_count`` also counts a physical form)."""
         return self.shards.valid
 
 
 FEATURE_GATHER_STRATEGIES = ("index", "psum", "flat")
+
+
+def _bit_view(x: torch.Tensor):
+    """``x`` as the integer view its bits are summed in (float32 as int32,
+    bool as uint8), and the function that restores the dtype."""
+    if x.dtype == torch.bool:
+        return x.view(torch.uint8), (lambda v: v.view(torch.bool))
+    return x.view(torch.int32), (lambda v: v.view(x.dtype))
+
 
 def _gather_owner_sum(x: torch.Tensor, shard: torch.Tensor, local: torch.Tensor):
     """Owner-masked gather-and-sum over the shard axis, bit-exact.
@@ -113,10 +138,7 @@ def _gather_owner_sum(x: torch.Tensor, shard: torch.Tensor, local: torch.Tensor)
     uint8), so the one owner's bits come back verbatim: signed zeros and
     NaN payloads too.
     """
-    if x.dtype == torch.bool:
-        view, restore = x.view(torch.uint8), (lambda v: v.view(torch.bool))
-    else:
-        view, restore = x.view(torch.int32), (lambda v: v.view(x.dtype))
+    view, restore = _bit_view(x)
     zero = torch.zeros((), dtype=view.dtype, device=x.device)
     parts = []
     for d in range(x.shape[0]):
@@ -128,12 +150,44 @@ def _gather_owner_sum(x: torch.Tensor, shard: torch.Tensor, local: torch.Tensor)
     return restore(torch.sum(torch.stack(parts), dim=0, dtype=view.dtype))
 
 
+def _gather_parts(parts, name: str, shard: torch.Tensor, local: torch.Tensor, psum: bool):
+    """The physical form of the owner gathers: field ``name`` of each part
+    lives on its own device. The entry indices are copied to each part's
+    device and gathered there, masked to the owner (on the bit view under
+    ``psum``); the D contributions are copied to the indices' device (the
+    lane's lead device) and summed in the same integer width (``psum``) or
+    selected by owner (``index``). Both give the owner's bits."""
+    out_dev = shard.device
+    idx_on: dict = {}
+    contribs = []
+    for d, part in enumerate(parts):
+        x = getattr(part, name)
+        dev = x.device
+        if dev not in idx_on:
+            idx_on[dev] = (shard.to(dev), local.to(dev))
+        sh, lo = idx_on[dev]
+        own = sh == d
+        src, restore = _bit_view(x) if psum else (x, None)
+        g = src[torch.where(own, lo, 0)]
+        mask = own.reshape(own.shape + (1,) * (g.ndim - own.ndim))
+        contribs.append(
+            torch.where(mask, g, torch.zeros((), dtype=g.dtype, device=dev)).to(out_dev))
+    if psum:
+        # Exactly one contribution is nonzero: the same-width sum is exact.
+        return restore(torch.sum(torch.stack(contribs), dim=0, dtype=contribs[0].dtype))
+    out = contribs[0]
+    extra = (1,) * (out.ndim - shard.ndim)
+    for d in range(1, len(contribs)):
+        out = torch.where((shard == d).reshape(shard.shape + extra), contribs[d], out)
+    return out
+
+
 def proj_take(proj, name: str, idx: torch.Tensor) -> torch.Tensor:
     """Gather field ``name`` of a flat :class:`Projected` or a
     :class:`ShardedProjected` at global gaussian indices ``idx`` (any
-    shape): the one gather every consumer (the reference bitmask and raster
-    gathers, the kernels' feature packer) goes through, so the (shard,
-    local) decomposition lives in one place.
+    shape), on ``idx``'s device: the one gather every consumer (the
+    reference bitmask and raster gathers, the kernels' feature packer) goes
+    through, so the (shard, local) decomposition lives in one place.
 
     A field that requires grad is gathered by ``index_select`` (through the
     flat view of a contiguous ``(D, Ns)`` field), which gives the same
@@ -143,13 +197,20 @@ def proj_take(proj, name: str, idx: torch.Tensor) -> torch.Tensor:
     0: a third of the paper frame's tile table."""
     idx = idx.long()
     if isinstance(proj, ShardedProjected):
-        field, ns = getattr(proj.shards, name), proj.shard_size
+        ns = proj.shard_size
+        fields = ([getattr(p, name) for p in proj.shards] if proj.physical
+                  else [getattr(proj.shards, name)])
+        if proj.gather == "psum" and torch.is_grad_enabled() and any(
+                f.requires_grad for f in fields):
+            raise RuntimeError(
+                "the psum feature gather is inference-only; train with "
+                "feature_gather 'index' or 'flat'"
+            )
+        if proj.physical:
+            return _gather_parts(proj.shards, name, idx // ns, idx % ns,
+                                 psum=proj.gather == "psum")
+        field = fields[0]
         if proj.gather == "psum":
-            if field.requires_grad and torch.is_grad_enabled():
-                raise RuntimeError(
-                    "the psum feature gather is inference-only; train with "
-                    "feature_gather 'index' or 'flat'"
-                )
             return _gather_owner_sum(field, idx // ns, idx % ns)
         if field.requires_grad:
             return _index_select(field.flatten(0, 1), idx)
@@ -167,7 +228,12 @@ def _index_select(field: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def proj_valid_count(proj) -> torch.Tensor:
     """Visible-gaussian count for flat or sharded features (an exact integer
-    reduction, so the shard-summed total equals the flat one)."""
+    reduction, so the shard-summed total equals the flat one). A physical
+    layout counts each shard on its device and sums on shard 0's."""
+    if isinstance(proj, ShardedProjected) and proj.physical:
+        dev = proj.shards[0].valid.device
+        return torch.sum(torch.stack([
+            torch.sum(p.valid.to(torch.int64)).to(dev) for p in proj.shards]))
     return torch.sum(proj.valid.to(torch.int64))
 
 

@@ -167,10 +167,10 @@ def refuse_grad(proj) -> None:
     sharded) requires grad: the hand kernels record no graph, so a loss
     through them would have no gradient. Raised on every device, also where
     the wrappers run their plain versions."""
-    if isinstance(proj, ShardedProjected):
-        proj = proj.shards
+    parts = proj.shards if isinstance(proj, ShardedProjected) else proj
+    parts = parts if isinstance(parts, tuple) else (parts,)
     if torch.is_grad_enabled() and any(
-        getattr(proj, f.name).requires_grad for f in dataclasses.fields(proj)
+        getattr(p, f.name).requires_grad for p in parts for f in dataclasses.fields(p)
     ):
         raise RuntimeError(
             "the cuda backend's hand kernels record no gradient; "
@@ -252,7 +252,8 @@ class TimedBackend(Backend):
     """Per-stage timed execution of a wrapped backend (DESIGN.md §14).
 
     Every stage call is fenced on both sides (``utils/misc.py::fence``: a
-    synchronize of the stage's CUDA device, nothing on the CPU), so the host
+    synchronize of each CUDA device the stage's operands live on, nothing
+    on the CPU), so the host
     interval between the fences is the stage's device time. It is recorded
     as a ``stage/<name>`` span on the process tracer (``force=True``:
     ``RenderConfig.timing`` is the opt-in) inside a

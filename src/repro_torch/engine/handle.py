@@ -1,15 +1,21 @@
-"""The session-style rendering handle (mirror of ``repro.engine.handle`` for
-a commit on one device, DESIGN.md §11).
+"""The session-style rendering handle (mirror of ``repro.engine.handle``,
+DESIGN.md §11).
 
-``engine.open(scene, cfg)`` commits the scene to the device once and
+``engine.open(scene, cfg)`` commits the scene to a render mesh once and
 returns a :class:`Renderer`:
 
-  * ``scene_shards=D`` (or a pre-sharded ``ShardedScene``) commits D
-    logical shards of the gaussian axis on the handle's device: the layout
-    is staged on the host through the refcounted scene-layout cache
-    (``serving/sharded.py``) and moved to the device once; renders are
-    bitwise those of D = 1 (DESIGN.md §10);
-
+  * ``device=`` commits on one device; ``devices=``/``mesh=`` on a
+    ``(data, model)`` :class:`~repro_torch.launch.mesh.RenderMesh` driven
+    by this one process. Camera lanes go to the data rows; with
+    ``scene_shards=D`` equal to the mesh's model extent the scene's shards
+    are physical, shard ``d`` on model column ``d``, each shard's frontend
+    runs on its device and the owner-masked psum gather reduces the
+    features to the row's lead device, where the merge and the backend run
+    once a lane. Renders are bitwise those of one device at D = 1;
+  * ``scene_shards=D`` (or a pre-sharded ``ShardedScene``) on a mesh that
+    cannot realize D commits D logical shards: the layout is staged on the
+    host through the refcounted scene-layout cache (``serving/sharded.py``)
+    and stays one tensor a row (DESIGN.md §10);
   * ``.render(cam)`` / ``.render_batch(cams, pad_to=...)`` are the
     synchronous entry points; a batch renders lane by lane through the same
     ``render``, so every lane is bitwise equal to a single render;
@@ -28,7 +34,7 @@ returns a :class:`Renderer`:
   * ``tile_params=(tile, group, tile_capacity)`` commits that triple;
     ``tile_params='auto'`` defers it to the first render, which looks the
     scene's signature up in the autotune cache or runs the two-phase search
-    (``repro_torch.autotune``) on the handle's device, then commits the
+    (``repro_torch.autotune``) over the handle's mesh, then commits the
     winner before any renderer exists: every render path (``render``, the
     halves, ``render_batch``, ``submit``, streams) reaches that resolution
     first, and renders bitwise like an open with the winner fixed;
@@ -39,16 +45,15 @@ returns a :class:`Renderer`:
     drains the worker, fails what it never resolved, unregisters the cache
     and releases its residency entry and its own scene-layout reference.
 
-``default_renderer(scene, cfg)`` is the module-default handle behind the
-deprecated free functions (``render_jit``, ``render_image``,
-``render_batch_sharded``), committed on the scene's own device.
-
-Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: meshes and several devices (queue 1, item 8).
+``default_renderer(scene, cfg, mesh=None)`` is the module-default handle
+behind the deprecated free functions (``render_jit``, ``render_image``,
+``render_batch_sharded``), committed on the scene's own device unless a
+mesh is named.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import threading
 import time
@@ -67,6 +72,7 @@ from repro_torch.core.pipeline import (
     FrontendResult,
     RenderConfig,
     RenderResult,
+    RenderStats,
     batch_renderer,
     check_config,
     register_render_cache,
@@ -77,7 +83,14 @@ from repro_torch.core.pipeline import (
     unregister_render_cache,
 )
 from repro_torch.core.projection import projected_bytes_per_gaussian
-from repro_torch.launch.mesh import render_mesh_shards
+from repro_torch.launch.mesh import (
+    DevicesArg,
+    RenderMesh,
+    make_render_mesh,
+    mesh_devices,
+    one_device_mesh,
+    render_mesh_shards,
+)
 from repro_torch.obs import emit_request_spans, get_registry, get_tracer
 from repro_torch.residency import ResidencyManager
 from repro_torch.serving.bucketing import BucketingScheduler, padded_size
@@ -87,14 +100,45 @@ from repro_torch.serving.sharded import (
     pad_camera_batch,
     release_scene_layout,
 )
+from repro_torch.sharding.policies import (
+    Placement,
+    data_extent,
+    render_replicated_pspec,
+    scene_shard_pspec,
+)
 from repro_torch.sharding.scene import SceneLike, ShardedScene
 from repro_torch.utils import pytree_bytes, resolve_device
-from repro_torch.utils.misc import ITEM_SHARDING
 
 _HANDLE_SEQ = itertools.count()
 _FN_CACHE_MAX = 64          # per-handle cached-renderer bound
-# open() options of the JAX handle the port does not take yet -> queue item.
-_UNPORTED_OPTIONS = {"devices": ITEM_SHARDING, "mesh": ITEM_SHARDING}
+
+
+def _mesh_batch(one, rows, batch: CameraBatch, backgrounds) -> RenderResult:
+    """Render a batch padded to a multiple of the data extent: lanes go to
+    the data rows contiguously, row ``r``'s through ``one`` (the batch
+    renderer of the signature) against ``rows[r]`` on its lead device; the
+    rows' results are copied to row 0's lead device and concatenated. Rows
+    on distinct cards overlap: nothing here waits on the host."""
+    if len(rows) == 1:
+        return one(rows[0], batch, backgrounds[0])
+    per = len(batch) // len(rows)
+    outs = []
+    for r, scene in enumerate(rows):
+        lanes = slice(r * per, (r + 1) * per)
+        sub = dataclasses.replace(
+            batch, R=batch.R[lanes], t=batch.t[lanes], fx=batch.fx[lanes],
+            fy=batch.fy[lanes], cx=batch.cx[lanes], cy=batch.cy[lanes],
+        )
+        outs.append(one(scene, sub, backgrounds[r]))
+    lead = outs[0].image.device
+    moved = [o.map(lambda x: x.to(lead)) for o in outs]
+    return RenderResult(
+        image=torch.cat([o.image for o in moved]),
+        stats=RenderStats(**{
+            f.name: torch.cat([getattr(o.stats, f.name) for o in moved])
+            for f in dataclasses.fields(RenderStats)
+        }),
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,8 +163,8 @@ class _Submitted:
 
 
 class Renderer:
-    """A committed (scene, config) pair on one device with render/serve
-    entry points. Construct through :func:`open`. ``submit`` is the
+    """A committed (scene, config) pair on a render mesh (one device or
+    several) with render/serve entry points. Construct through :func:`open`. ``submit`` is the
     thread-safe entry; the internal worker owns all device work for the
     futures path."""
 
@@ -130,6 +174,8 @@ class Renderer:
         cfg: RenderConfig,
         *,
         device=None,
+        devices: DevicesArg = None,
+        mesh: Optional[RenderMesh] = None,
         scene_shards: Union[str, int] = "auto",
         device_budget_mb: Optional[float] = None,
         max_batch: int = 8,
@@ -140,6 +186,10 @@ class Renderer:
         residency: Optional[ResidencyManager] = None,
         clock=time.monotonic,
     ):
+        if devices is not None and mesh is not None:
+            raise ValueError("pass devices or mesh, not both")
+        if device is not None and (devices is not None or mesh is not None):
+            raise ValueError("pass device, devices or mesh, not more than one")
         # Tile-grouping params: a (tile, group, tile_capacity) triple commits
         # now; 'auto' waits for the first render, which brings the camera
         # resolution the search needs. The scene it tunes on is held until
@@ -160,44 +210,80 @@ class Renderer:
                 ) from None
             cfg = config_for(cfg, cand)
         shards = self._resolve_shards(scene, cfg, scene_shards)
-        # One device: the shard axis stays logical (render_mesh_shards over
-        # one device is 1), so neither budget term divides by D.
-        phys = render_mesh_shards(1, shards)
+        if device is not None:
+            mesh = one_device_mesh(resolve_device(device))
+        # The physical shard count: what divides the per-device bytes. On an
+        # explicit mesh it is the mesh's 'model' extent (a mesh without one
+        # keeps the shard axis logical: every device holds the whole scene);
+        # otherwise the render_mesh_shards policy over the devices the mesh
+        # is about to be built from.
+        if mesh is not None:
+            n_dev = mesh.size
+            phys = shards if shards > 1 and mesh.shape.get("model", 1) == shards else 1
+        else:
+            devices = mesh_devices(devices)
+            n_dev = len(devices)
+            phys = render_mesh_shards(n_dev, shards)
+        # Per-device budget model (DESIGN.md §12): the scene parameters at
+        # 1/phys plus the per-camera projected features at the padded count
+        # over the feature divisor (phys only under the psum gather). An
+        # explicit device_budget_mb wins; a shared residency manager's budget
+        # otherwise. The check is per scene: one that cannot fit alone fails
+        # fast, while the aggregate across scenes is what the residency
+        # manager pages against.
+        budget_mb = device_budget_mb
+        if budget_mb is None and residency is not None:
+            budget_mb = residency.budget_mb
+        scene_mb = pytree_bytes(scene) / 2**20
+
+        def model(s, p):
+            return scene_mb / p + self._feature_mb(scene, s) / self._feature_div(cfg, s, p)
+
+        if budget_mb is not None:
+            # Escalation only when the caller left both the layout and the
+            # mesh to the handle (an explicit mesh cannot grow a 'model'
+            # axis): the smallest shard count the device count realizes
+            # physically that fits the cap.
+            if (scene_shards == "auto" and mesh is None
+                    and isinstance(scene, GaussianScene) and model(shards, phys) > budget_mb):
+                for d in range(max(shards, 1), n_dev + 1):
+                    if n_dev % d == 0 and model(d, d) <= budget_mb:
+                        shards, phys = d, d
+                        break
+            if model(shards, phys) > budget_mb:
+                layout = f"{phys}-way sharded" if phys > 1 else "replicated"
+                fdiv = self._feature_div(cfg, shards, phys)
+                raise ValueError(
+                    f"scene needs {model(shards, phys):.2f} MB/device {layout} "
+                    f"({scene_mb / phys:.2f} MB parameters + "
+                    f"{self._feature_mb(scene, shards) / fdiv:.2f} MB per-camera "
+                    f"projected features at N/{fdiv}), over the {budget_mb} MB "
+                    f"budget — raise scene_shards or the device count"
+                )
+        self._scene_mb_per_device = scene_mb / phys
+        self._feature_mb_per_device = (self._feature_mb(scene, shards)
+                                       / self._feature_div(cfg, shards, phys))
+        # What the commit runs ('flat' for a replicated frontend, even
+        # though cfg.feature_gather may still read 'auto'). 'auto' resolves
+        # to the psum gather over physical shards, to 'index' otherwise.
+        self._feature_gather = self._resolved_gather(cfg, shards, phys)
         cfg_updates = {}
         if cfg.scene_shards != shards:
             cfg_updates["scene_shards"] = shards
         if shards > 1 and cfg.feature_gather == "auto":
-            cfg_updates["feature_gather"] = self._resolved_gather(cfg, shards, phys)
-        cfg = dataclasses.replace(cfg, **cfg_updates) if cfg_updates else cfg
-        check_config(cfg)
-        self._device = resolve_device(device)
-        self._cfg = cfg
-        # Per-device budget model (DESIGN.md §12): the scene parameters at
-        # 1/phys plus the per-camera projected features at the padded count
-        # over the feature divisor. An explicit device_budget_mb wins; a
-        # shared residency manager's budget otherwise. The check is per
-        # scene: one that cannot fit alone fails fast, while the aggregate
-        # across scenes is what the residency manager pages against.
-        budget_mb = device_budget_mb
-        if budget_mb is None and residency is not None:
-            budget_mb = residency.budget_mb
-        self._scene_mb_per_device = pytree_bytes(scene) / phys / 2**20
-        fdiv = self._feature_div(cfg, shards, phys)
-        self._feature_mb_per_device = self._feature_mb(scene, shards) / fdiv
-        need = self._scene_mb_per_device + self._feature_mb_per_device
-        if budget_mb is not None and need > budget_mb:
+            cfg_updates["feature_gather"] = self._feature_gather
+        self._cfg = dataclasses.replace(cfg, **cfg_updates) if cfg_updates else cfg
+        check_config(self._cfg)
+        if mesh is None:
+            mesh = make_render_mesh(devices, scene_shards=phys)
+        model_extent = mesh.shape.get("model", 1)
+        if shards > 1 and model_extent not in (1, shards):
             raise ValueError(
-                f"scene needs {need:.2f} MB on its one device "
-                f"({self._scene_mb_per_device:.2f} MB parameters + "
-                f"{self._feature_mb_per_device:.2f} MB per-camera projected "
-                f"features at N/{fdiv}), over the {budget_mb} MB budget — "
-                f"logical shards on one device divide neither; sharding over "
-                f"several devices is not ported yet (ROADMAP queue 1, item "
-                f"{ITEM_SHARDING})"
+                f"mesh model axis ({model_extent}) must match scene_shards="
+                f"{shards} (or be absent for a logical-only shard axis)"
             )
-        # What the commit runs ('flat' for a replicated frontend, even
-        # though cfg.feature_gather may still read 'auto').
-        self._feature_gather = self._resolved_gather(cfg, shards, phys)
+        self._mesh = mesh
+        self._device = mesh.lead(0)
         self._phys_shards = phys
         # Stream sessions, before the commit: the residency entry's dynamic
         # cost (frontend_cache_mb) may run during the eager page-in below.
@@ -208,22 +294,24 @@ class Renderer:
         # through the refcounted layout cache (the layout survives until the
         # last handle over it closes), then registered with the residency
         # manager, which keeps a host copy as its backing store. The eager
-        # acquire below is the commit's one move to the device; under a
+        # acquire below is the commit's one placement over the mesh; under a
         # budgeted shared manager the scene may later page out and back in.
         staged = scene
         self._layout_ref = None
         if shards > 1 and isinstance(scene, GaussianScene):
             staged = acquire_scene_layout(scene, shards)
             self._layout_ref = (scene, shards)
+        spec = (scene_shard_pspec(mesh) if isinstance(staged, ShardedScene)
+                else render_replicated_pspec())
         self._residency = (
             residency if residency is not None
             else ResidencyManager(budget_mb=device_budget_mb)
         )
         self._res_entry = self._residency.register(
-            (id(scene), shards, self._device),
+            (id(scene), shards, mesh),
             staged,
-            self._device,
-            need,
+            Placement(mesh, spec),
+            self._scene_mb_per_device + self._feature_mb_per_device,
             label=f"scene@{id(scene):#x}/D{shards}",
             source=scene,
         )
@@ -291,6 +379,12 @@ class Renderer:
         return self._closed
 
     @property
+    def mesh(self) -> RenderMesh:
+        """The committed render mesh (a one-device ``('data',)`` mesh for
+        ``device=``)."""
+        return self._mesh
+
+    @property
     def scene_shards(self) -> int:
         """The committed number of gaussian-axis shards D."""
         return self._cfg.scene_shards
@@ -304,20 +398,29 @@ class Renderer:
         return (self._cfg.tile, self._cfg.group, self._cfg.tile_capacity)
 
     @property
-    def _scene(self) -> Optional[SceneLike]:
-        """The device-resident committed scene, acquired through the
+    def _placed(self) -> Optional[tuple]:
+        """The committed scene placed over the mesh (one entry a data row,
+        ``sharding/policies.py::place``), acquired through the
         residency manager on every use: an LRU touch while resident, a
-        bitwise copy of the host backing after a page-out."""
+        bitwise placement of the host backing after a page-out."""
         entry = self._res_entry
         if entry is None:
             return None
         return self._residency.acquire(entry)
 
     @property
+    def _scene(self) -> Optional[SceneLike]:
+        """The committed scene as data row 0 holds it (single renders and
+        stream frames run there)."""
+        placed = self._placed
+        return None if placed is None else placed[0]
+
+    @property
     def committed_scene(self) -> SceneLike:
-        """The device-resident committed scene (paged in if needed).
-        Handles opened through one residency manager on the same (scene,
-        layout, device) share one entry, and so one device copy."""
+        """The committed scene as data row 0 holds it (paged in if needed):
+        whole on its lead device, or one shard a model column. Handles
+        opened through one residency manager on the same (scene, layout,
+        mesh) share one entry, and so one copy a device."""
         self._check_open()
         return self._scene
 
@@ -362,6 +465,7 @@ class Renderer:
             "config": self._cfg,
             "tile_params": self.tile_params,
             "device": str(self._device),
+            "mesh": dict(self._mesh.shape),
             "scene_shards": self._cfg.scene_shards,
             "physical_shards": self._phys_shards,
             "scene_mb_per_device": self._scene_mb_per_device,
@@ -452,7 +556,7 @@ class Renderer:
             if kind == "single":
                 fn = lambda scene, cam, bg: render(scene, cam, cfg, bg)
             elif kind == "batch":
-                fn = batch_renderer(cfg, *geom)
+                fn = functools.partial(_mesh_batch, batch_renderer(cfg, *geom))
             elif kind == "frontend":
                 fn = lambda scene, cam: render_frontend(scene, cam, cfg)
             else:
@@ -486,15 +590,17 @@ class Renderer:
                 return
             from repro_torch.autotune.search import autotune, config_for
 
-            res = autotune(self._tune_source, cam, self._cfg, device=self._device,
+            res = autotune(self._tune_source, cam, self._cfg, mesh=self._mesh,
                            **self._autotune_opts)
             self._cfg = config_for(self._cfg, res.candidate)
             self._tune_pending = False
 
-    def _background(self, background) -> Optional[torch.Tensor]:
+    def _background(self, background, row: int = 0) -> Optional[torch.Tensor]:
+        """The background on data row ``row``'s lead device."""
         if background is None:
             return None
-        return torch.as_tensor(background, dtype=torch.float32, device=self._device)
+        return torch.as_tensor(background, dtype=torch.float32,
+                               device=self._mesh.lead(row))
 
     # -- synchronous entry points -------------------------------------------
 
@@ -534,19 +640,25 @@ class Renderer:
         background=None,
     ) -> RenderResult:
         """Render B cameras of one geometry: image (B, H, W, 3), each stats
-        field (B,). The batch is padded to ``max(B, pad_to)`` by replicating
-        the last camera, as the JAX package pads its dispatch shape; the
-        padded lanes are rendered and dropped, and exactly B come back."""
+        field (B,), on the lead device of data row 0. The batch is padded to
+        ``max(B, pad_to)`` rounded up to the mesh's data extent by
+        replicating the last camera, as the JAX package pads its dispatch
+        shape; the lanes go to the data rows contiguously
+        (``camera_batch_pspec``), each rendered through ``render`` on its
+        row's scene, so every lane is bitwise a single render. The padded
+        lanes are rendered and dropped, and exactly B come back."""
         self._check_open()
         batch = cams if isinstance(cams, CameraBatch) else CameraBatch.from_cameras(cams)
         # An 'auto' handle tunes at lane 0: the signature reads only the
         # geometry every lane shares.
         self._resolve_tile_params(batch.camera(0))
         orig = len(batch)
-        padded = pad_camera_batch(batch, padded_size(max(orig, pad_to or 0), 1))
+        lanes = data_extent(self._mesh)
+        padded = pad_camera_batch(batch, padded_size(max(orig, pad_to or 0), lanes))
         fn = self._fn("batch", padded)
         with torch.inference_mode():
-            out = fn(self._scene, padded, self._background(background))
+            bgs = [self._background(background, r) for r in range(self._mesh.rows)]
+            out = fn(self._placed, padded, bgs)
         if len(padded) != orig:
             out = out.map(lambda x: x[:orig])
         return out
@@ -678,7 +790,7 @@ class Renderer:
                     r.future.set_exception(exc)
             return
         t1 = self._clock()
-        padded = padded_size(max(len(reqs), self._max_batch), 1)
+        padded = padded_size(max(len(reqs), self._max_batch), data_extent(self._mesh))
         with self._worker_lock:
             self._counters["batches"] += 1
             self._counters["completed"] += len(reqs)
@@ -767,7 +879,7 @@ class Renderer:
         return (
             f"<Renderer {self.cache_name} {state} mode={self._cfg.mode!r} "
             f"backend={self._cfg.backend!r} scene_shards={self._cfg.scene_shards} "
-            f"device={self._device}>"
+            f"mesh={dict(self._mesh.shape)} device={self._device}>"
         )
 
 
@@ -776,6 +888,8 @@ def open(  # noqa: A001 — the module-level session verb is the API
     cfg: RenderConfig,
     *,
     device=None,
+    devices: DevicesArg = None,
+    mesh: Optional[RenderMesh] = None,
     scene_shards: Union[str, int] = "auto",
     device_budget_mb: Optional[float] = None,
     max_batch: int = 8,
@@ -785,44 +899,45 @@ def open(  # noqa: A001 — the module-level session verb is the API
     autotune_opts: Optional[dict] = None,
     residency: Optional[ResidencyManager] = None,
     clock=time.monotonic,
-    **unported,
 ) -> Renderer:
-    """Commit ``(scene, cfg)`` to ``device`` (CUDA unless the caller names
-    another; raises when CUDA is missing) and return the :class:`Renderer`.
+    """Commit ``(scene, cfg)`` and return the :class:`Renderer`.
 
+    * ``device``/``devices``/``mesh`` — where to commit (one of them): one
+      device (a one-device mesh), a device list for
+      ``launch/mesh.py::make_render_mesh`` (an int takes the first n cards;
+      a list may repeat a device: virtual devices), or an explicit
+      :class:`~repro_torch.launch.mesh.RenderMesh`. None of them: every
+      visible card (raises when CUDA is missing; name the CPU to run
+      there).
+    * ``scene_shards`` — ``'auto'`` takes D from ``cfg.scene_shards``, or
+      from a pre-sharded ``ShardedScene``; an int overrides it. The
+      physical shard count is the mesh's ``'model'`` extent, or the
+      ``render_mesh_shards`` policy over the devices (logical shards when
+      the device count cannot realize D). ``feature_gather='auto'`` runs
+      ``'psum'`` over physical shards, ``'index'`` otherwise.
     * ``device_budget_mb`` — per-device memory cap counting the scene
-      parameters plus the per-camera projected features; a scene over it
-      alone raises.
+      parameters (1/D when physically sharded) plus the per-camera
+      projected features (N/D under the psum gather, N otherwise). With
+      ``scene_shards='auto'`` and no mesh the handle escalates the shard
+      count until the scene fits; a scene over it otherwise raises.
     * ``residency`` — a shared :class:`~repro_torch.residency.ResidencyManager`:
-      handles committed through one manager share a device copy per (scene,
-      layout, device) and page in and out against the manager's budget,
+      handles committed through one manager share one copy per (scene,
+      layout, mesh) and page in and out against the manager's budget,
       bitwise invisibly. Without it the handle gets a private manager (no
       paging unless ``device_budget_mb`` forces it). With both,
       ``device_budget_mb`` bounds this scene alone.
     * ``max_batch``/``max_wait``/``queue_depth`` — the ``submit()`` futures
       front-end's batching knobs; ``clock`` is the scheduler's clock.
-    * ``scene_shards`` — ``'auto'`` takes D from ``cfg.scene_shards``, or
-      from a pre-sharded ``ShardedScene``; an int D commits D logical shards
-      on the one device (``feature_gather='auto'`` runs ``'index'``).
     * ``tile_params`` — ``None`` keeps the config's (tile, group,
       tile_capacity); a triple commits that one (``group_capacity`` floored
       at its tile capacity); ``'auto'`` tunes at the first render (the
-      autotune cache, else the two-phase search on ``device``) and commits
+      autotune cache, else the two-phase search over the mesh) and commits
       the winner. ``autotune_opts`` goes to
       :func:`repro_torch.autotune.autotune`. A gstg triple past 32 member
       tiles a group raises ``ValueError`` here.
-    * ``devices`` and ``mesh`` raise ``NotImplementedError`` naming their
-      ROADMAP item.
     """
-    for name in unported:
-        if name not in _UNPORTED_OPTIONS:
-            raise TypeError(f"open() got an unexpected keyword argument {name!r}")
-        raise NotImplementedError(
-            f"open({name}=...) is not ported yet (ROADMAP queue 1, item "
-            f"{_UNPORTED_OPTIONS[name]})"
-        )
     return Renderer(
-        scene, cfg, device=device, scene_shards=scene_shards,
+        scene, cfg, device=device, devices=devices, mesh=mesh, scene_shards=scene_shards,
         device_budget_mb=device_budget_mb,
         max_batch=max_batch, max_wait=max_wait, queue_depth=queue_depth,
         tile_params=tile_params, autotune_opts=autotune_opts,
@@ -838,26 +953,25 @@ _DEFAULT_MAX = 32
 _default_handles: Dict[tuple, Renderer] = {}
 
 
-def default_renderer(scene: SceneLike, cfg: RenderConfig, *, mesh=None) -> Renderer:
-    """The module-default handle for ``(scene, cfg)`` on the scene's device.
+def default_renderer(scene: SceneLike, cfg: RenderConfig, *,
+                     mesh: Optional[RenderMesh] = None) -> Renderer:
+    """The module-default handle for ``(scene, cfg, mesh)``.
 
     Backs the deprecated free functions (``render_jit``, ``render_image``,
-    ``render_batch_sharded``): repeated calls with one scene and config
-    reuse one committed handle and its cached renderers. The handle commits
-    where the scene lives, as ``core.pipeline.render`` runs there. Bounded
-    FIFO; an evicted handle is closed. ``mesh`` other than None raises
-    (ROADMAP queue 1, item 8).
+    ``render_batch_sharded``): repeated calls with one scene, config and
+    mesh reuse one committed handle and its cached renderers. Without a
+    mesh the handle commits where the scene lives (shard 0's device for a
+    physical ``ShardedScene``), as ``core.pipeline.render`` runs there.
+    Bounded FIFO; an evicted handle is closed.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            f"default_renderer(mesh=...) is not ported yet (ROADMAP queue 1, item "
-            f"{ITEM_SHARDING})"
-        )
-    key = (id(scene), cfg, scene.device)
+    key = (id(scene), cfg, mesh if mesh is not None else scene.device)
     handle = _default_handles.get(key)
     if handle is not None and not handle.closed:
         return handle
-    handle = Renderer(scene, cfg, device=scene.device)
+    if mesh is not None:
+        handle = Renderer(scene, cfg, mesh=mesh)
+    else:
+        handle = Renderer(scene, cfg, device=scene.device)
     while len(_default_handles) >= _DEFAULT_MAX:
         _default_handles.pop(next(iter(_default_handles))).close()
     _default_handles[key] = handle

@@ -359,6 +359,7 @@ def worker_argv(
     scene_specs: Sequence[str],
     *,
     device: Optional[str] = None,
+    devices: Optional[int] = None,
     python: Optional[str] = None,
     extra: Sequence[str] = (),
 ) -> List[str]:
@@ -377,5 +378,7 @@ def worker_argv(
     ]
     if device:
         argv += ["--device", str(device)]
+    if devices:
+        argv += ["--devices", str(devices)]
     argv += list(extra)
     return argv

@@ -44,7 +44,6 @@ from typing import Dict, List, Optional
 from repro_torch.gateway.errors import WorkerDied
 from repro_torch.serving.queue import RenderRequest
 from repro_torch.serving.server import RenderServer
-from repro_torch.utils.misc import ITEM_SHARDING
 
 __all__ = ["InprocWorker", "WorkerDied", "strip_stamps"]
 
@@ -78,15 +77,15 @@ _INPROC_DISPATCH_LOCK = threading.Lock()
 
 class InprocWorker:
     """An in-process fleet member: an owned :class:`RenderServer` on
-    ``device`` (CUDA unless the caller names another; no fallback).
+    ``device``, or over ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.RenderMesh` of its own; with neither,
+    every visible card, CUDA required; no fallback).
 
     ``kill()`` flips a flag checked at every dispatch/ping entry — the
     in-process simulation of a node loss: requests already handed to a
     dispatch complete or fail atomically with it, everything after raises
     :class:`WorkerDied`. ``shutdown()`` still closes the underlying server
     even after a kill, so a test's killed worker releases its handles.
-    ``mesh=`` (several devices, ROADMAP item 8) raises
-    ``NotImplementedError``, as ``RenderServer(mesh=)`` does.
     """
 
     def __init__(
@@ -103,11 +102,6 @@ class InprocWorker:
         device_budget_mb: Optional[float] = None,
         clock=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"InprocWorker(mesh=...) is not ported yet (ROADMAP queue 1, item "
-                f"{ITEM_SHARDING}); a worker serves from one device (device=...)"
-            )
         self.worker_id = worker_id
         self.scene_ids = frozenset(scenes)
         self.max_batch = max_batch
@@ -115,6 +109,7 @@ class InprocWorker:
         self.server = RenderServer(
             scenes,
             device=device,
+            mesh=mesh,
             max_batch=max_batch,
             max_wait=max_wait,
             queue_depth=queue_depth,

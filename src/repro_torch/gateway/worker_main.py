@@ -19,8 +19,14 @@ parity story: the gateway can hand a request to any worker (or retry it on
 another after a death) and the pixels cannot tell. ``--scenes`` takes scene
 ids or the JAX package's ``sid:index`` pairs; the index keys nothing here.
 
+``--devices N`` serves over a mesh of N devices of ``--device``'s type
+(``launch/mesh.py::cli_devices``): N virtual CPU devices on the CPU, as the
+JAX worker forces N virtual host devices, or the first min(N, cards) cards;
+``--scene-shards`` goes through ``render_mesh_shards`` over them. The ready
+banner's ``devices`` field is that count.
+
 Differences from the JAX package's worker: ``--device`` (CUDA unless the
-caller names another; no fallback) in place of ``--devices``, and
+caller names another; no fallback) beside ``--devices``, and
 ``--backend reference|cuda``. Images go out as ``encode_array`` of the CPU
 tensor.
 """
@@ -41,6 +47,9 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="device the worker's scenes are made and served on "
                          "(no fallback)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="serve over a mesh of N devices: N virtual CPU devices "
+                         "with --device cpu, else the first min(N, cards) cards")
     ap.add_argument("--gaussians", type=int, default=1500)
     ap.add_argument("--scene-shards", type=int, default=1)
     ap.add_argument("--max-batch", type=int, default=8)
@@ -68,6 +77,17 @@ def parse_scene_ids(spec: str) -> list:
     return out
 
 
+def worker_mesh(args):
+    """The worker's render mesh from ``--device``, ``--devices`` and
+    ``--scene-shards``: physical shards when the shard count divides the
+    device count, else a ('data',) mesh with logical shards."""
+    from repro_torch.launch.mesh import cli_devices, make_render_mesh, render_mesh_shards
+
+    devs = cli_devices(args.device, args.devices)
+    phys = render_mesh_shards(len(devs), max(args.scene_shards, 1))
+    return make_render_mesh(devs, scene_shards=phys)
+
+
 def _emit(out, doc: dict) -> None:
     out.write(json.dumps(doc) + "\n")
     out.flush()
@@ -93,6 +113,7 @@ def main(argv=None) -> int:
     from repro_torch.serving.server import RenderServer
 
     shards = max(args.scene_shards, 1)
+    mesh = worker_mesh(args)
     scenes = {
         sid: scene_like_paper(sid, args.gaussians, device=args.device)
         for sid in parse_scene_ids(args.scenes)
@@ -107,7 +128,7 @@ def main(argv=None) -> int:
     )
     server = RenderServer(
         scenes,
-        device=args.device,
+        mesh=mesh,
         max_batch=args.max_batch,
         max_wait=args.max_wait,
         queue_depth=args.queue_depth,
@@ -166,11 +187,11 @@ def main(argv=None) -> int:
         "ready": True,
         "worker_id": args.worker_id,
         "device": str(server.device),
-        "devices": 1,
+        "devices": server.mesh.size,
         "scenes": sorted(scenes),
         "pid": os.getpid(),
     })
-    print(f"[{args.worker_id}] up: {len(scenes)} scenes on {server.device}, "
+    print(f"[{args.worker_id}] up: {len(scenes)} scenes on {server.mesh}, "
           f"backend={args.backend}, torch {torch.__version__}", file=sys.stderr)
 
     for line in sys.stdin:

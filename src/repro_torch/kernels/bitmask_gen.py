@@ -114,10 +114,11 @@ def bitmask_kernel(
     if G == 0 or K == 0:
         return out
     lib = build.load("bitmask_gen", _SIGNATURES)
-    status = lib.bitmask_gen_launch(
-        feat.data_ptr(), origin.data_ptr(), in_img.data_ptr(), out.data_ptr(),
-        G, K, tile_px, gf, KERNEL_METHODS.index(method), build.stream_of(feat),
-    )
+    with torch.cuda.device(feat.device):    # the launch goes to the current device
+        status = lib.bitmask_gen_launch(
+            feat.data_ptr(), origin.data_ptr(), in_img.data_ptr(), out.data_ptr(),
+            G, K, tile_px, gf, KERNEL_METHODS.index(method), build.stream_of(feat),
+        )
     build.check_status(lib, status, "bitmask_gen")
     build.count_launch("bitmask_gen")
     return out

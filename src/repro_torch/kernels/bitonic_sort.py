@@ -93,10 +93,11 @@ def bitonic_sort_kernel(
     if G == 0:
         return keys_out, vals_out
     lib = build.load("bitonic_sort", _SIGNATURES)
-    status = lib.bitonic_sort_launch(
-        keys.data_ptr(), payload.data_ptr(), keys_out.data_ptr(), vals_out.data_ptr(),
-        G, K, build.stream_of(keys),
-    )
+    with torch.cuda.device(keys.device):    # the launch goes to the current device
+        status = lib.bitonic_sort_launch(
+            keys.data_ptr(), payload.data_ptr(), keys_out.data_ptr(), vals_out.data_ptr(),
+            G, K, build.stream_of(keys),
+        )
     build.check_status(lib, status, "bitonic_sort")
     build.count_launch("bitonic_sort")
     return keys_out, vals_out

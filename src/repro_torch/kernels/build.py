@@ -153,5 +153,8 @@ def check_status(lib: ctypes.CDLL, status: int, what: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as the int the C entry
-    points take."""
+    points take. A ``<<<>>>`` launch goes to the calling thread's current
+    device, so every wrapper makes its C call under
+    ``torch.cuda.device(t.device)``: a tensor on a card that is not current
+    launches on its own card."""
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -229,10 +229,11 @@ def raster_tile_kernel(
     if N == 0:
         return out, counts
     lib = build.load("raster_tile", _SIGNATURES)
-    status = lib.raster_tile_launch(
-        feat.data_ptr(), origin.data_ptr(), out.data_ptr(), counts.data_ptr(),
-        N, K, tile_px, chunk, int(early_exit), build.stream_of(feat),
-    )
+    with torch.cuda.device(feat.device):    # the launch goes to the current device
+        status = lib.raster_tile_launch(
+            feat.data_ptr(), origin.data_ptr(), out.data_ptr(), counts.data_ptr(),
+            N, K, tile_px, chunk, int(early_exit), build.stream_of(feat),
+        )
     build.check_status(lib, status, "raster_tile")
     build.count_launch("raster_tile")
     return out, counts
@@ -281,11 +282,12 @@ def raster_group_fused_kernel(
         return out, counts
     lib = build.load("raster_tile", _SIGNATURES)
     cap = -1 if tile_capacity is None else int(tile_capacity)
-    status = lib.raster_group_fused_launch(
-        feat.data_ptr(), masks.data_ptr(), origin.data_ptr(), out.data_ptr(),
-        counts.data_ptr(), G, K, tile_px, gf, chunk, cap, int(early_exit),
-        build.stream_of(feat),
-    )
+    with torch.cuda.device(feat.device):    # the launch goes to the current device
+        status = lib.raster_group_fused_launch(
+            feat.data_ptr(), masks.data_ptr(), origin.data_ptr(), out.data_ptr(),
+            counts.data_ptr(), G, K, tile_px, gf, chunk, cap, int(early_exit),
+            build.stream_of(feat),
+        )
     build.check_status(lib, status, "raster_group_fused")
     build.count_launch("raster_group_fused")
     return out, counts

@@ -1,2 +1,2 @@
-"""Launch-time policies (mirror of ``repro.launch``). Only the render
-mesh's shard policy is ported so far (``mesh.render_mesh_shards``)."""
+"""Launch-time policies and CLIs (mirror of ``repro.launch``): the render
+mesh (``mesh.py``) and the render, serve and gateway CLIs."""

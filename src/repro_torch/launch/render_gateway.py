@@ -22,11 +22,18 @@ SIGKILLed (subprocess) or flag-killed (inproc) mid-load and the run must
 still complete every request; ``--parity-check`` proves failover is
 invisible in the pixels.
 
+``--devices-per-worker N`` gives each worker a render mesh of N devices of
+``--device``'s type (``launch/mesh.py::cli_devices``: N virtual CPU
+devices on the CPU, as the JAX CLI forces N virtual host devices; the first
+min(N, cards) cards on CUDA), with ``--scene-shards`` through
+``render_mesh_shards``: in-process workers each get that mesh, subprocess
+workers ``--devices N``, and the parity reference renders over the same
+mesh.
+
 Differences from the JAX package's CLI: ``--device`` (CUDA unless the
-caller names another; no fallback) and ``--backend reference|cuda``; every
-worker serves from that one device, so ``--devices-per-worker`` above 1
-raises (ROADMAP item 8). Under ``--backend cuda`` on a CUDA device the
-kernels are built once before any child is spawned.
+caller names another; no fallback) and ``--backend reference|cuda``. Under
+``--backend cuda`` on a CUDA device the kernels are built once before any
+child is spawned.
 
 Exits non-zero if any request was lost, p99 is not finite, parity fails,
 or an induced kill produced no failover.
@@ -44,8 +51,10 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.render_gateway")
     ap.add_argument("--workers", type=int, default=2)
     ap.add_argument("--devices-per-worker", type=int, default=1,
-                    help="devices per worker; every worker of the port serves "
-                         "from one device, so only 1 is taken (ROADMAP item 8)")
+                    help="devices per worker: N virtual CPU devices with "
+                         "--device cpu, else the first min(N, cards) cards; "
+                         "in-process workers each get a mesh over them, "
+                         "subprocess workers --devices N")
     ap.add_argument("--device", default="cuda",
                     help="device every worker (and the parity reference) "
                          "renders on (no fallback)")
@@ -110,15 +119,7 @@ def _parse_resolutions(spec: str):
 
 def main(argv=None):
     args = parse_args(argv)
-
-    from repro_torch.utils.misc import ITEM_SHARDING
-
-    if args.devices_per_worker > 1:
-        raise NotImplementedError(
-            f"--devices-per-worker {args.devices_per_worker}: a worker on several "
-            f"devices is not ported yet (ROADMAP queue 1, item {ITEM_SHARDING}); "
-            f"each worker serves from one device (--device)"
-        )
+    dpw = max(args.devices_per_worker, 1)
 
     import numpy as np
     import torch
@@ -128,6 +129,7 @@ def main(argv=None):
     from repro_torch.core.gaussians import scene_like_paper
     from repro_torch.core.pipeline import RenderConfig
     from repro_torch.gateway import RenderGateway
+    from repro_torch.launch.mesh import cli_devices, make_render_mesh, render_mesh_shards
     from repro_torch.obs import get_registry, get_tracer
     from repro_torch.serving.queue import RenderRequest
     from repro_torch.serving.server import poisson_arrivals
@@ -149,6 +151,10 @@ def main(argv=None):
         scene_shards=shards,
     )
 
+    # The mesh of one worker (and of the parity reference).
+    worker_devs = cli_devices(device, dpw)
+    mesh = make_render_mesh(worker_devs, render_mesh_shards(len(worker_devs), shards))
+
     # -- fleet ----------------------------------------------------------------
     worker_ids = [f"w{i}" for i in range(max(args.workers, 1))]
     scenes = None
@@ -159,7 +165,7 @@ def main(argv=None):
                   for sid in scene_ids}
         workers = [
             InprocWorker(
-                wid, scenes, device=device,
+                wid, scenes, mesh=mesh,
                 max_batch=args.max_batch, max_wait=args.max_wait,
                 queue_depth=args.worker_queue_depth, scene_shards=shards,
                 device_budget_mb=args.device_budget_mb,
@@ -193,11 +199,11 @@ def main(argv=None):
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (src, env.get("PYTHONPATH")) if p)
-        print(f"spawning {len(worker_ids)} workers on {device} ...")
+        print(f"spawning {len(worker_ids)} workers x {dpw} devices on {device} ...")
         workers = [
             SubprocessWorker(
                 wid, scene_ids,
-                worker_argv(wid, scene_ids, device=str(device), extra=extra),
+                worker_argv(wid, scene_ids, device=str(device), devices=dpw, extra=extra),
                 max_batch=args.max_batch, env=env,
             )
             for wid in worker_ids
@@ -211,7 +217,7 @@ def main(argv=None):
         queue_depth=args.queue_depth,
         max_retries=args.max_retries,
         heartbeat_timeout_s=args.heartbeat_timeout,
-        devices_per_worker=1,
+        devices_per_worker=len(worker_devs),
     )
 
     # Pre-commit scenes round-robin (worker i gets scene i, i+N, ...): the
@@ -309,14 +315,15 @@ def main(argv=None):
 
         from repro_torch import engine
         from repro_torch.serving.bucketing import padded_size
+        from repro_torch.sharding.policies import data_extent
 
         if scenes is None:
             scenes = {sid: scene_like_paper(sid, args.gaussians, device=device)
                       for sid in scene_ids}
         cfg_one = _dc.replace(cfg, scene_shards=1)
-        pad = padded_size(args.max_batch, 1)
+        pad = padded_size(args.max_batch, data_extent(mesh))
         by_id = {r.request_id: r for _, r in load}
-        refs = {sid: engine.open(scenes[sid], cfg_one, device=device)
+        refs = {sid: engine.open(scenes[sid], cfg_one, mesh=mesh)
                 for sid in scene_ids}
         for rid, res in sorted(results.items()):
             req = by_id[rid]

@@ -14,11 +14,18 @@ handles), and reports per-bucket latency, throughput and renderer-cache
 counters, the residency counters and, with ``--streams``, each stream's
 cache and speculation counters.
 
+``--devices N`` serves over a render mesh of N devices of ``--device``'s
+type (``launch/mesh.py::cli_devices``): with ``--device cpu`` N virtual
+CPU devices, as the JAX CLI forces N virtual host devices; on CUDA the
+first min(N, cards) cards, with the JAX CLI's warning when fewer are
+visible. ``--scene-shards D`` shards the gaussian axis D ways: physically
+over the mesh's model axis when D divides the device count, logically
+otherwise (with the JAX CLI's note).
+
 Differences from the JAX package's CLI: ``--device`` (CUDA unless the
-caller names another; no fallback) in place of ``--devices``,
-``--backend reference|cuda``, ``--scene-shards D`` commits D logical
-shards on the one device, and under ``--autotune`` the parity check renders
-each scene at its handle's tuned triple.
+caller names another; no fallback) beside ``--devices``,
+``--backend reference|cuda``, and under ``--autotune`` the parity check
+renders each scene at its handle's tuned triple.
 
 Exits non-zero unless every request completes with a finite p99 and, under
 ``--parity-check``, every image is bitwise equal to the handle's
@@ -37,9 +44,13 @@ def parse_args(argv=None):
     ap.add_argument("--backend", default="reference", choices=["reference", "cuda"])
     ap.add_argument("--device", default="cuda",
                     help="device every scene is made and committed on (no fallback)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="serve over a mesh of N devices: N virtual CPU devices with "
+                         "--device cpu, else the first min(N, cards) cards")
     ap.add_argument("--scene-shards", type=int, default=1,
-                    help="commit each scene as D logical shards of the gaussian axis "
-                         "on the one device (DESIGN.md §10)")
+                    help="shard the gaussian axis D ways over the mesh's 'model' axis "
+                         "(DESIGN.md §10); D must divide the device count to be "
+                         "physical, otherwise the shard axis stays logical")
     ap.add_argument("--device-budget-mb", type=float, default=None,
                     help="per-device memory cap counting the scene parameters plus "
                          "the per-camera projected features (DESIGN.md §12). A "
@@ -115,6 +126,7 @@ def main(argv=None) -> int:
     from repro_torch.core.camera import orbit_cameras
     from repro_torch.core.gaussians import scene_like_paper
     from repro_torch.core.pipeline import RenderConfig
+    from repro_torch.launch.mesh import cli_devices, make_render_mesh, render_mesh_shards
     from repro_torch.obs import get_registry, get_tracer, trace_env_enabled
     from repro_torch.serving.queue import RenderRequest
     from repro_torch.serving.server import RenderServer, poisson_arrivals
@@ -127,6 +139,12 @@ def main(argv=None) -> int:
         tracer.enable()
     timing = trace_env_enabled()
     shards = max(args.scene_shards, 1)
+    devices = cli_devices(args.device, args.devices)
+    phys_shards = render_mesh_shards(len(devices), shards)
+    if shards > 1 and phys_shards == 1:
+        print(f"note: scene_shards={shards} does not divide "
+              f"{len(devices)} devices; shard axis stays logical")
+    mesh = make_render_mesh(devices, scene_shards=phys_shards)
 
     scene_ids = [s.strip() for s in args.scenes.split(",") if s.strip()]
     scenes = {sid: scene_like_paper(sid, args.gaussians, device=args.device)
@@ -172,7 +190,7 @@ def main(argv=None) -> int:
 
     server = RenderServer(
         scenes,
-        device=args.device,
+        mesh=mesh,
         max_batch=args.max_batch,
         max_wait=args.max_wait,
         queue_depth=args.queue_depth,
@@ -206,7 +224,8 @@ def main(argv=None) -> int:
                   f"gather={hs['feature_gather']}) within "
                   f"{args.device_budget_mb} MB budget (resident={handle.resident})")
 
-    where = (f"backend={args.backend}, device={server.device}, scene_shards={shards}")
+    where = (f"backend={args.backend}, mesh={dict(mesh.shape)} over "
+             f"{len(set(mesh.devices))} distinct device(s), scene_shards={shards}")
     if args.streams > 0:
         print(f"serving {args.streams} streams x {args.stream_frames} frames "
               f"@ {args.rate:.0f} req/s (spec_depth={args.spec_depth}, {where})")
@@ -249,7 +268,7 @@ def main(argv=None) -> int:
         # one-shard render in the port.
         cfg_one = dataclasses.replace(cfg, scene_shards=1)
         by_id = {r.request_id: r for _, r in load}
-        refs = {sid: engine.open(scenes[sid], cfg_one, device=args.device,
+        refs = {sid: engine.open(scenes[sid], cfg_one, device=mesh.lead(0),
                                  tile_params=tuned.get(sid))
                 for sid in sorted({by_id[rid].scene_id for rid in results})}
         for rid, res in sorted(results.items()):
@@ -271,6 +290,8 @@ def main(argv=None) -> int:
         doc["summary"] = {
             "config": vars(args),
             "device": str(server.device),
+            "devices": mesh.size,
+            "mesh": dict(mesh.shape),
             **server.stats.summary(),
             "requests": [
                 {

@@ -2,12 +2,12 @@
 (mirror of ``repro.residency.manager``, DESIGN.md §17).
 
   * ``register()`` files one :class:`ResidencyEntry` per committed
-    ``(scene identity, shard layout, device)``, with a HOST copy of the
+    ``(scene identity, shard layout, mesh)``, with a HOST copy of the
     staged layout as its paging backing store, so a page-out never loses
     the scene. The copy is taken at registration and never aliases the
     caller's tensors: a torch scene is mutable in place, and the entry must
-    keep the bits the commit saw. For a CUDA commit it lives in pinned
-    memory, so a page-in is one DMA per tensor. Entries are refcounted:
+    keep the bits the commit saw. When the placement holds a CUDA device it
+    lives in pinned memory, so a page-in is one DMA per tensor. Entries are refcounted:
     every handle over the same layout shares ONE entry, and therefore one
     device copy.
   * ``acquire()`` returns the device-resident scene, paging it in on a
@@ -15,9 +15,13 @@
     aggregate cost fits the budget. Eviction drops the manager's device
     reference; an in-flight render keeps its own reference to the tensors
     it was handed, so paging can never corrupt a dispatch.
-  * Paging is bitwise-invisible: ``.to(device)`` of the backing copies the
-    bits the commit saw, so a paged-out-then-reloaded scene renders exactly
-    as one that never moved.
+  * The placement is a device (the scene goes there whole) or a
+    ``sharding/policies.py::Placement`` (a mesh and a spec, as the JAX
+    manager takes a ``NamedSharding``): a page-in then copies each shard of
+    the backing to its devices (``place``).
+  * Paging is bitwise-invisible: a page-in copies the bits the commit saw,
+    so a paged-out-then-reloaded scene renders exactly as one that never
+    moved.
   * Entry cost = the handle's static per-device model (scene parameters +
     per-camera projected features, DESIGN.md §12) PLUS dynamic cost
     callbacks: the handles' stream frontend caches
@@ -43,14 +47,16 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch.obs import get_registry, get_tracer
+from repro_torch.sharding.policies import Placement, place
 from repro_torch.utils import pytree_bytes, tree_map
 
 
-def _host_backing(tree, device: torch.device):
+def _host_backing(tree, pinned: bool):
     """A host copy of a staged scene: the paging backing store. Always a
     copy (``clone`` for CPU tensors: the caller may change its scene in
-    place after the commit); pinned when the commit's device is CUDA."""
-    if device.type == "cuda":
+    place after the commit); pinned when the placement holds a CUDA
+    device."""
+    if pinned:
         return tree_map(lambda x: x.detach().cpu().pin_memory(), tree)
     return tree_map(lambda x: x.detach().cpu().clone(), tree)
 
@@ -74,7 +80,8 @@ class ResidencyEntry:
         self.source = weakref.ref(source) if source is not None else None
         self.label = label
         self.backing = backing
-        self.device_to = device_to       # where a page-in puts the scene
+        self.device_to = device_to       # where a page-in puts the scene: a
+                                         # device or a Placement
         self.static_mb = float(static_mb)
         self.nbytes = pytree_bytes(backing)   # what one page-in moves
         self.device: Any = None          # the device scene; None = paged out
@@ -134,8 +141,9 @@ class ResidencyManager:
     ) -> ResidencyEntry:
         """File (or ref-share) the entry for ``key``; does NOT page in.
 
-        ``device`` is where a page-in puts the scene (a CUDA device pins the
-        host backing). A second handle over the same layout gets the SAME
+        ``device`` is where a page-in puts the scene: a device, or a
+        ``Placement`` (mesh and spec); one that holds a CUDA device pins the
+        host backing. A second handle over the same layout gets the SAME
         entry (refs+1), so two configs over one scene hold one scene copy.
         ``static_mb`` takes the max across registrants. ``source``, the
         object whose id() the key holds, guards against a reused id: a
@@ -150,9 +158,13 @@ class ResidencyManager:
                 self._entries[entry.key] = entry
                 entry = None
             if entry is None:
-                device = torch.device(device)
+                if isinstance(device, Placement):
+                    pinned = device.has_cuda
+                else:
+                    device = torch.device(device)
+                    pinned = device.type == "cuda"
                 entry = ResidencyEntry(
-                    key, _host_backing(staged, device), device, static_mb,
+                    key, _host_backing(staged, pinned), device, static_mb,
                     label or repr(key), source,
                 )
                 self._entries[key] = entry
@@ -205,7 +217,8 @@ class ResidencyManager:
 
     def _page_in(self, entry: ResidencyEntry):
         """Lock held. Evict LRU-cold residents until ``entry`` fits, then
-        copy the backing store to the entry's device. The copy from pinned
+        copy the backing store to the entry's device, or place it over the
+        entry's mesh (``sharding/policies.py::place``). The copy from pinned
         memory is synchronous, so the span covers the transfer (and any
         work queued before it on the stream)."""
         registry = get_registry()
@@ -227,7 +240,11 @@ class ResidencyManager:
                     break
                 self._evict(victim)
         t0 = tracer.clock()
-        entry.device = tree_map(lambda x: x.to(entry.device_to), entry.backing)
+        to = entry.device_to
+        if isinstance(to, Placement):
+            entry.device = place(entry.backing, to.mesh, to.spec)
+        else:
+            entry.device = tree_map(lambda x: x.to(to), entry.backing)
         t1 = tracer.clock()
         entry.page_ins += 1
         # Counter + span in ONE critical section: the residency cross-check

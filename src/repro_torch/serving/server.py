@@ -1,14 +1,14 @@
 """The render server: a thin dispatch loop over shared engine handles (mirror
-of ``repro.serving.server`` on one device, DESIGN.md §9/§11).
+of ``repro.serving.server``, DESIGN.md §9/§11).
 
   submit() --> RequestQueue --> BucketingScheduler --> Renderer.render_batch
    (bounded, backpressure)      (one bucket per render    (ONE committed handle
                                  signature; max-batch /    per (scene, config);
                                  max-wait flush)           fixed dispatch shape)
 
-Scene placement and the renderer caches live in the
+Scene placement, the render mesh and the renderer caches live in the
 ``repro_torch.engine.Renderer`` handles the server opens lazily per (scene
-id, config); the server drains the queue into signature buckets and hands
+id, config) over the server's one mesh; the server drains the queue into signature buckets and hands
 each bucket to the right handle. Every handle commits through the server's
 one :class:`~repro_torch.residency.ResidencyManager`, so scenes that fit
 the device budget one at a time but not together page in and out, and two
@@ -35,14 +35,20 @@ import numpy as np
 import torch
 
 from repro_torch.core.pipeline import CameraBatch, render_cache_info
+from repro_torch.launch.mesh import (
+    RenderMesh,
+    make_render_mesh,
+    one_device_mesh,
+    render_mesh_shards,
+)
 from repro_torch.obs import emit_request_spans, get_tracer
 from repro_torch.residency import ResidencyManager
 from repro_torch.serving.bucketing import Bucket, BucketingScheduler, padded_size
 from repro_torch.serving.queue import RenderRequest, RequestQueue
 from repro_torch.serving.stats import ServingStats
+from repro_torch.sharding.policies import data_extent
 from repro_torch.sharding.scene import SceneLike
 from repro_torch.utils import resolve_device
-from repro_torch.utils.misc import ITEM_SHARDING
 
 
 @dataclasses.dataclass
@@ -56,23 +62,29 @@ class RequestResult:
 
 
 class RenderServer:
-    """Serves render requests against a registry of scenes on one device.
+    """Serves render requests against a registry of scenes over one render
+    mesh.
 
-    ``device`` (CUDA unless the caller names another; no quiet fallback to
-    the CPU) is where every handle commits. ``scene_shards = D > 1`` lets
-    requests whose ``cfg.scene_shards`` is D commit D logical shards of the
-    gaussian axis on that device (DESIGN.md §10); a request's shard count
-    must be 1 or D, and it is part of the bucket signature, so the two
-    layouts never mix in a batch. ``device_budget_mb`` seeds the server's
+    ``device`` commits every handle on that one device; ``mesh`` over that
+    :class:`~repro_torch.launch.mesh.RenderMesh`; with neither, the mesh is
+    built at first use over every visible card (CUDA is required then; no
+    quiet fallback to the CPU), with ``scene_shards`` through
+    ``render_mesh_shards``, as the JAX server builds it over
+    ``jax.devices()``. ``scene_shards = D > 1`` lets requests whose
+    ``cfg.scene_shards`` is D commit D shards of the gaussian axis:
+    physical over a mesh whose model extent is D, logical otherwise
+    (DESIGN.md §10); a request's shard count must be 1 or D, and it is
+    part of the bucket signature, so the two layouts never mix in a batch.
+    Every dispatch pads to ``max_batch`` rounded up to the mesh's data
+    extent. ``device_budget_mb`` seeds the server's
     residency manager: scenes that fit individually but not together page
     in and out LRU against the budget, bitwise invisibly, and only a scene
     too big to fit alone fails at commit; ``prefetch=False`` turns off the
     admission-time page-in. ``autotune=True`` opens every handle with
     ``tile_params='auto'``: the first dispatch of each (scene, config) tunes
-    on the server's device, or hits the autotune cache, and the handle
+    over the server's mesh, or hits the autotune cache, and the handle
     serves the tuned triple from then on (``autotune_opts`` goes to
-    ``repro_torch.autotune.autotune``). ``mesh=`` (several devices, ROADMAP
-    item 8) raises ``NotImplementedError``. Close the server (or use it as a
+    ``repro_torch.autotune.autotune``). Close the server (or use it as a
     context manager) to close its handles.
     """
 
@@ -95,13 +107,16 @@ class RenderServer:
         prefetch: bool = True,
         clock=time.monotonic,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"RenderServer(mesh=...) is not ported yet (ROADMAP queue 1, item "
-                f"{ITEM_SHARDING}); the port serves from one device (device=...)"
+        if device is not None and mesh is not None:
+            raise ValueError("pass device or mesh, not both")
+        if device is not None:
+            mesh = one_device_mesh(resolve_device(device))
+        elif mesh is None and not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' or a mesh of CPU devices"
             )
+        self._mesh: Optional[RenderMesh] = mesh
         self.scenes = dict(scenes)
-        self.device = resolve_device(device)
         self.scene_shards = scene_shards
         self.device_budget_mb = device_budget_mb
         self.autotune = autotune
@@ -129,6 +144,22 @@ class RenderServer:
         # stream's first frame over the shared handle; the handle's close()
         # closes its streams.
         self._streams: Dict[Tuple[str, object, str], object] = {}
+
+    @property
+    def mesh(self) -> RenderMesh:
+        """The server's render mesh, built at first use over every visible
+        card when none was given (the shard axis stays logical when
+        ``scene_shards`` does not divide the card count)."""
+        if self._mesh is None:
+            n = torch.cuda.device_count()
+            self._mesh = make_render_mesh(
+                scene_shards=render_mesh_shards(n, self.scene_shards))
+        return self._mesh
+
+    @property
+    def device(self) -> torch.device:
+        """The lead device of the mesh's first data row."""
+        return self.mesh.lead(0)
 
     # -- admission ----------------------------------------------------------
 
@@ -205,7 +236,7 @@ class RenderServer:
                 from repro_torch import engine
 
                 handle = engine.open(
-                    self.scenes[scene_id], cfg, device=self.device, residency=self.residency,
+                    self.scenes[scene_id], cfg, mesh=self.mesh, residency=self.residency,
                     tile_params="auto" if self.autotune else None,
                     autotune_opts=self.autotune_opts,
                 )
@@ -269,9 +300,9 @@ class RenderServer:
         handle = self.commit(reqs[0].scene_id, reqs[0].cfg)
         batch = CameraBatch.from_cameras([r.camera for r in reqs])
         # Fixed dispatch shape: every bucket of a signature pads to
-        # max_batch, so a ragged max_wait flush runs the same shape as a
-        # full one (one device, so one camera lane per device).
-        shape = padded_size(self.scheduler.max_batch, 1)
+        # max_batch rounded up to the mesh's data extent (the camera lanes),
+        # so a ragged max_wait flush runs the same shape as a full one.
+        shape = padded_size(self.scheduler.max_batch, data_extent(self.mesh))
 
         before = render_cache_info()
         t0 = self._clock()

@@ -165,11 +165,13 @@ def render_batch_sharded(
     """Deprecated: ``repro_torch.engine.open(scene, cfg).render_batch(cams,
     pad_to=...)``.
 
-    Delegates to the module-default handle for ``(scene, cfg)``:
+    Delegates to the module-default handle for ``(scene, cfg, mesh)``:
     ``scene_shards`` (default: ``cfg.scene_shards``, or the layout of an
     already-sharded scene) selects the gaussian-axis shard count D, the
-    batch is padded to ``max(B, pad_to)`` and exactly B images and stats
-    come back. ``mesh`` other than None raises (ROADMAP queue 1, item 8).
+    handle commits over ``mesh`` (physical shards when its model extent is
+    D), or on the scene's device without one, the batch is padded to
+    ``max(B, pad_to)`` rounded up to the mesh's data extent, and exactly B
+    images and stats come back.
     """
     warnings.warn(
         "render_batch_sharded() is deprecated; open a handle with "

@@ -1,9 +1,9 @@
-"""The canonical scene-sharded layout (mirror of ``repro.sharding``).
+"""The canonical scene-sharded layout and the render partition specs
+(mirror of ``repro.sharding``).
 
 Lazy re-exports, so importing ``repro_torch.sharding`` loads no render
-code. The JAX package's ``policies`` (mesh partition specs and the LM's
-sharding rules) are not ported yet: the render specs come with multi-GPU
-sharding (ROADMAP queue 1, item 8), the LM rules with item 13.
+code. Of the JAX package's ``policies`` the render specs and placement are
+ported; the LM's sharding rules come with ROADMAP queue 1, item 13.
 """
 
 _LAZY = {
@@ -12,6 +12,14 @@ _LAZY = {
     "shard_scene_host": "repro_torch.sharding.scene",
     "scene_flat": "repro_torch.sharding.scene",
     "unshard_scene": "repro_torch.sharding.scene",
+    "PartitionSpec": "repro_torch.sharding.policies",
+    "Placement": "repro_torch.sharding.policies",
+    "place": "repro_torch.sharding.policies",
+    "camera_batch_pspec": "repro_torch.sharding.policies",
+    "data_extent": "repro_torch.sharding.policies",
+    "render_replicated_pspec": "repro_torch.sharding.policies",
+    "scene_shard_pspec": "repro_torch.sharding.policies",
+    "feature_shard_pspec": "repro_torch.sharding.policies",
 }
 
 __all__ = sorted(_LAZY)

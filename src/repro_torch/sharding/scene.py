@@ -15,12 +15,15 @@ opacity logit ``PAD_OPACITY`` puts their alpha far below the 1/255
 visibility cutoff, so ``Projected.valid`` is False and every counter sees
 exactly the unpadded scene.
 
-On one device the shard axis is logical: the shards are rows of one tensor.
+On one device the shard axis is logical: the shards are rows of one tensor
+(the stacked form). Placed over a mesh's ``'model'`` axis
+(``sharding/policies.py::place``) the shards are physical: one
+``GaussianScene`` per shard, each on its own device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Tuple, Union
 
 import torch
 
@@ -41,20 +44,32 @@ _PAD_FILL = {"opacity": PAD_OPACITY}
 class ShardedScene:
     """A GaussianScene in the canonical padded/sharded layout.
 
-    ``shards`` holds the ordinary scene tensors with a leading ``(D, Ns)``
-    shard axis; ``num_real`` is the unpadded gaussian count. Built by
-    :func:`shard_scene` or :func:`shard_scene_host`.
+    ``shards`` holds either the ordinary scene tensors with a leading
+    ``(D, Ns)`` shard axis (the stacked form, on one device), or a tuple of
+    D ``(Ns, ...)`` scenes, each on its own device (the physical form);
+    ``num_real`` is the unpadded gaussian count. Built by
+    :func:`shard_scene` or :func:`shard_scene_host`, and placed physically
+    by ``sharding/policies.py::place``.
     """
 
-    shards: GaussianScene   # every field with leading (D, Ns) axes
+    shards: Union[GaussianScene, Tuple[GaussianScene, ...]]
     num_real: int           # gaussians before padding
 
     @property
+    def physical(self) -> bool:
+        """Whether the shards are separate scenes (one per device)."""
+        return isinstance(self.shards, tuple)
+
+    @property
     def num_shards(self) -> int:
+        if self.physical:
+            return len(self.shards)
         return self.shards.means3d.shape[0]
 
     @property
     def shard_size(self) -> int:
+        if self.physical:
+            return self.shards[0].means3d.shape[0]
         return self.shards.means3d.shape[1]
 
     @property
@@ -68,14 +83,27 @@ class ShardedScene:
 
     @property
     def device(self) -> torch.device:
-        return self.shards.device
+        """The device of shard 0 (the lead device of a physical layout)."""
+        return self.shard(0).device
 
     def shard(self, d: int) -> GaussianScene:
         """Shard ``d`` as a plain ``(Ns, ...)`` scene (views, no copy)."""
+        if self.physical:
+            return self.shards[d]
         return GaussianScene(**{f: getattr(self.shards, f)[d] for f in SCENE_FIELDS})
 
+    def stacked(self) -> GaussianScene:
+        """The stacked ``(D, Ns, ...)`` form, on shard 0's device."""
+        if not self.physical:
+            return self.shards
+        dev = self.device
+        return GaussianScene(**{
+            f: torch.stack([getattr(s, f).to(dev) for s in self.shards]) for f in SCENE_FIELDS
+        })
+
     def to(self, device) -> "ShardedScene":
-        return ShardedScene(shards=self.shards.to(device), num_real=self.num_real)
+        """The stacked form on ``device``."""
+        return ShardedScene(shards=self.stacked().to(device), num_real=self.num_real)
 
 
 SceneLike = Union[GaussianScene, ShardedScene]
@@ -125,9 +153,8 @@ def scene_flat(scene: ShardedScene) -> GaussianScene:
     ``scene_flat(shard_scene(s, d))`` equals ``s`` on the first
     ``s.num_gaussians`` rows bitwise; the tail is cull-guaranteed padding.
     """
-    return GaussianScene(**{
-        f: getattr(scene.shards, f).flatten(0, 1) for f in SCENE_FIELDS
-    })
+    stacked = scene.stacked()
+    return GaussianScene(**{f: getattr(stacked, f).flatten(0, 1) for f in SCENE_FIELDS})
 
 
 def unshard_scene(scene: ShardedScene) -> GaussianScene:

@@ -67,31 +67,36 @@ def tree_map(fn, tree):
     return tree
 
 
+def tree_devices(tree) -> list:
+    """The distinct devices of the tensors in ``tree`` (a tensor, or a
+    dataclass, list or tuple of them, nested), in the order first met."""
+    if isinstance(tree, torch.Tensor):
+        return [tree.device]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        items = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = list(tree)
+    else:
+        return []
+    out = []
+    for x in items:
+        for dev in tree_devices(x):
+            if dev not in out:
+                out.append(dev)
+    return out
+
+
 def tree_device(tree) -> Optional[torch.device]:
     """The device of the first tensor in ``tree`` (a tensor, or a dataclass,
     list or tuple of them, nested), or None when it holds no tensor."""
-    if isinstance(tree, torch.Tensor):
-        return tree.device
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        items = (getattr(tree, f.name) for f in dataclasses.fields(tree))
-    elif isinstance(tree, (list, tuple)):
-        items = iter(tree)
-    else:
-        return None
-    for x in items:
-        dev = tree_device(x)
-        if dev is not None:
-            return dev
-    return None
+    devs = tree_devices(tree)
+    return devs[0] if devs else None
 
 
 def fence(tree) -> None:
-    """Wait for the work queued on the CUDA device that ``tree``'s tensors
-    live on. On the CPU there is nothing to wait for: ops run eagerly."""
-    dev = tree_device(tree)
-    if dev is not None and dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-# The ROADMAP queue 1 item whose entry points the port does not take yet.
-ITEM_SHARDING = "8: sharding along the gaussian axis"
+    """Wait for the work queued on every CUDA device that ``tree``'s
+    tensors live on. On the CPU there is nothing to wait for: ops run
+    eagerly."""
+    for dev in tree_devices(tree):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)

@@ -652,3 +652,56 @@ def test_gateway_failover_bitwise_on_the_card(cuda_device):
         with engine.open(scenes[req.scene_id], cfg, device=cuda_device) as h:
             one = h.render_batch([req.camera], pad_to=2).image[0].cpu()
         assert torch.equal(res[req.request_id].image, one), req.request_id
+
+
+def test_kernels_launch_on_a_card_that_is_not_current(cuda_device):
+    """Every wrapper launches under its operand's device: with card 0
+    current, the BGM, the fused and tile raster kernels and the bitonic sort
+    on card 1 run there and give card 0's results bit for bit. Needs two
+    cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: a tensor on a card that is not current")
+    _, _, grid, _, feat, masks = _case()
+    keys, payload = _sort_case(4, 8192, seed=3)
+
+    def run(dev):
+        f, m = feat.to(dev), masks.to(dev)
+        o, i = ops.group_origins(grid, dev), ops.tiles_in_image(grid, dev)
+        out = [bitmask_kernel(f, o, i, grid.tile, grid.gf, "ellipse")]
+        out += raster_group_fused_kernel(f, m, o, grid.tile, grid.gf, chunk=32)
+        out += raster_tile_kernel(f, o, grid.group, chunk=32)    # group lists as 64-px tiles
+        out += bitonic_sort_kernel(keys.to(dev), payload.to(dev))
+        torch.cuda.synchronize(dev)
+        return out
+
+    with torch.cuda.device(0):
+        want = run(torch.device("cuda", 0))
+        got = run(torch.device("cuda", 1))
+    for g, w in zip(got, want):
+        assert g.device == torch.device("cuda", 1)
+        assert torch.equal(g.cpu().view(torch.int32), w.cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("data,model", [(4, 1), (2, 2), (1, 4)])
+def test_virtual_mesh_render_bitwise_on_the_card(cuda_device, data, model):
+    """A mesh that lists the card four times renders a batch bitwise like
+    one card, image and counters; a model axis commits the psum gather and
+    each lane launches the BGM and the fused RM once."""
+    from repro_torch.launch.mesh import make_render_mesh
+
+    scene, _, _, _, _, _ = _case()
+    cams = camera.orbit_cameras(4, 5.0, W, H)
+    cfg = dataclasses.replace(CFG, backend="cuda")
+    with engine.open(scene, cfg, device=cuda_device) as one:
+        want = one.render_batch(cams)
+    mesh = make_render_mesh([cuda_device] * 4, scene_shards=model)
+    with engine.open(scene, cfg, mesh=mesh, scene_shards=model) as r:
+        build.reset_launches()
+        got = r.render_batch(cams)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        assert r.stats()["feature_gather"] == ("psum" if model > 1 else "flat")
+    assert torch.equal(got.image, want.image)
+    for f in dataclasses.fields(got.stats):
+        assert torch.equal(getattr(got.stats, f.name), getattr(want.stats, f.name)), f.name
+    assert launches["bitmask_gen"] == launches["raster_group_fused"] == len(cams)

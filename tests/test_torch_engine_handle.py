@@ -9,8 +9,8 @@ at 64x64:
   * the futures contract: a failing request resolves its own future and the
     next submit is bitwise equal to render; cancelled futures, worker
     crashes and close() terminate every future;
-  * the unported options raise, naming their ROADMAP item; residency,
-    streams and tile-parameter autotune, once unported, work;
+  * the once-unported options work: residency, streams, tile-parameter
+    autotune, and devices=/mesh= over virtual CPU devices;
   * the serving queue and bucketing scheduler the handle is built on.
 
 Every partial bucket is forced out with flush(); no test waits out
@@ -476,21 +476,47 @@ def test_close_fails_futures_the_worker_never_resolved(scene, cfg):
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(devices=2), "item 8"), (dict(mesh=object()), "item 8"),
+    pytest.param(dict(devices=["cpu", "cpu"]), None, id="option0-ported"),
+    pytest.param(dict(mesh=(1, 2)), None, id="option1-ported"),
     pytest.param(dict(tile_params="auto"), None, id="option2-ported"),
     pytest.param(dict(autotune_opts={}), None, id="option3-ported"),
     pytest.param(dict(residency="shared"), None, id="option4-ported"),
 ])
 def test_unported_open_options_raise(scene, cfg, option, item, tmp_path, monkeypatch):
-    """The multi-device options raise naming item 8. ``tile_params='auto'``
-    (once unported, item 11) tunes at the first render and renders bitwise
-    like an open with the tuned triple fixed; ``autotune_opts`` alone
-    changes nothing. ``residency=`` (once unported, item 11) commits through
-    the shared manager: two handles over one scene share one entry and one
-    device copy, and render bitwise like a private handle."""
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            _open(scene, cfg, **option)
+    """Every open() option of the JAX handle is ported. ``devices=`` and
+    ``mesh=`` (once unported, item 8) commit over a mesh of virtual CPU
+    devices: two data rows, or a (1, 2) mesh with two physical shards under
+    the psum gather, each rendering bitwise like one device; ``devices=2``
+    names cards, so without CUDA it raises, and ``device`` with ``mesh``
+    raises. ``tile_params='auto'`` (once unported, item 11) tunes at the
+    first render and renders bitwise like an open with the tuned triple
+    fixed; ``autotune_opts`` alone changes nothing. ``residency=`` (once
+    unported, item 11) commits through the shared manager: two handles over
+    one scene share one entry and one device copy, and render bitwise like
+    a private handle."""
+    assert item is None
+    if "devices" in option or "mesh" in option:
+        from repro_torch.launch.mesh import make_render_mesh
+
+        cams = [_cam(), _cam((1.5, 0.8, 4.0)), _cam((-1.0, 1.2, 4.2))]
+        with _open(scene, cfg) as one:
+            want = one.render_batch(cams)
+        if "mesh" in option:
+            data, model = option["mesh"]
+            mesh = make_render_mesh(["cpu"] * (data * model), scene_shards=model)
+            r = engine.open(scene, cfg, mesh=mesh, scene_shards=model)
+            with pytest.raises(ValueError, match="not more than one"):
+                engine.open(scene, cfg, device="cpu", mesh=mesh)
+        else:
+            r = engine.open(scene, cfg, **option)
+            if not torch.cuda.is_available():
+                with pytest.raises(RuntimeError, match="CUDA"):
+                    engine.open(scene, cfg, devices=2)
+        with r:
+            _assert_bitwise(r.render_batch(cams), want, f"mesh {r.stats()['mesh']}")
+            _assert_bitwise(r.render(cams[1]), _lane(want, 1), "mesh render")
+            phys = r.stats()["physical_shards"]
+            assert r.stats()["feature_gather"] == ("psum" if phys > 1 else "flat")
         return
     if "residency" not in option:
         from repro_torch.autotune import cache as at_cache
@@ -524,10 +550,12 @@ def test_unported_open_options_raise(scene, cfg, option, item, tmp_path, monkeyp
     assert mgr.stats()["entries"] == 0
 
 
-def test_unported_entry_points_raise(scene, cfg):
+def test_unported_entry_points_raise(scene, cfg, default_handles):
     """open_stream (once unported, item 11) opens a stream whose frames are
-    bitwise the handle's render; the default handle and the shims raise
-    naming item 8 for a mesh."""
+    bitwise the handle's render. The default handle and the shim over a
+    mesh (once unported, item 8) commit over it: a (2, 2) mesh of virtual
+    CPU devices renders bitwise like the one-device handle."""
+    from repro_torch.launch.mesh import make_render_mesh
     from repro_torch.serving.sharded import render_batch_sharded
 
     cam = _cam()
@@ -536,11 +564,17 @@ def test_unported_entry_points_raise(scene, cfg):
             _assert_bitwise(s.render(cam), r.render(cam), "stream frame")
             _assert_bitwise(s.render(cam), r.render(cam), "stream hit")
             assert (s.stats()["hits"], s.stats()["misses"]) == (1, 1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        engine.default_renderer(scene, cfg, mesh=object())
+        want = r.render_batch([cam, _cam((1.5, 0.8, 4.0))])
+    mesh = make_render_mesh(["cpu"] * 4, scene_shards=2)
+    two = dataclasses.replace(cfg, scene_shards=2)
+    handle = engine.default_renderer(scene, two, mesh=mesh)
+    assert engine.default_renderer(scene, two, mesh=mesh) is handle
+    assert handle.mesh == mesh and handle.stats()["physical_shards"] == 2
+    _assert_bitwise(_lane(handle.render_batch([cam]), 0), _lane(want, 0), "default handle")
     with pytest.warns(DeprecationWarning, match="render_batch_sharded"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            render_batch_sharded(scene, [cam], cfg, mesh=object())
+        out = render_batch_sharded(scene, [cam, _cam((1.5, 0.8, 4.0))], cfg, mesh=mesh,
+                                   scene_shards=2)
+    _assert_bitwise(out, want, "render_batch_sharded(mesh=)")
     with pytest.raises(TypeError, match="unexpected"):
         _open(scene, cfg, max_batchh=2)
 

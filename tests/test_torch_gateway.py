@@ -603,11 +603,30 @@ def test_inproc_worker_serves_stream_frames_under_its_own_lock(fleet_scenes, sin
         assert torch.equal(out["stream"][i].image, out["plain"][10 + i].image)
 
 
-def test_inproc_worker_mesh_raises_naming_item_8(fleet_scenes):
+def test_inproc_worker_mesh_raises_naming_item_8(fleet_scenes, single_thread):
+    """InprocWorker(mesh=) (once unported, item 8): a worker over a (2, 2)
+    mesh of virtual CPU devices with two physical shards serves a 3-request
+    dispatch (padded to 4 lanes, one per data row pair) bitwise like a
+    one-device handle's render."""
+    from repro_torch import engine
+    from repro_torch.core.camera import orbit_cameras
+    from repro_torch.core.pipeline import RenderConfig
     from repro_torch.gateway import InprocWorker
+    from repro_torch.launch.mesh import make_render_mesh
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        InprocWorker("w0", fleet_scenes[1], device="cpu", mesh=object())
+    mesh = make_render_mesh(["cpu"] * 4, scene_shards=2)
+    cfg = RenderConfig(group_capacity=256, tile_capacity=256, span=6, scene_shards=2)
+    cams = orbit_cameras(3, 4.5, 64, 64)
+    w = InprocWorker("w0", fleet_scenes[1], mesh=mesh, max_batch=3, scene_shards=2)
+    try:
+        got = w.dispatch([RenderRequest(i, "train", c, cfg) for i, c in enumerate(cams)])
+        assert w.server.commit("train", cfg).stats()["feature_gather"] == "psum"
+    finally:
+        w.shutdown()
+    one = dataclasses.replace(cfg, scene_shards=1)
+    with engine.open(fleet_scenes[1]["train"], one, device="cpu") as r:
+        for i, c in enumerate(cams):
+            assert torch.equal(got[i].image, r.render(c).image)
 
 
 # -- the wire -----------------------------------------------------------------
@@ -779,8 +798,17 @@ def test_render_gateway_cli_inproc_kill_and_parity(tmp_path, capsys, single_thre
     assert doc["summary"]["failovers"] >= 1 and doc["summary"]["completed"] == 12
 
 
-def test_render_gateway_devices_per_worker_raises_naming_item_8():
+def test_render_gateway_devices_per_worker_raises_naming_item_8(capsys, single_thread):
+    """--devices-per-worker 2 (once unported, item 8), in process with
+    --device cpu: each worker serves over two virtual CPU devices with two
+    physical shards, a kill fails over, and every image is bitwise the
+    parity reference's lane over the same mesh."""
     from repro_torch.launch.render_gateway import main
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main(["--device", "cpu", "--devices-per-worker", "2"])
+    rc = main(["--device", "cpu", "--inproc", "--devices-per-worker", "2",
+               "--scene-shards", "2", "--gaussians", "300", "--resolutions", "64x64",
+               "--requests", "8", "--max-batch", "2", "--no-realtime",
+               "--kill-worker", "auto", "--kill-after", "2", "--parity-check"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "render_gateway: OK" in out and "parity-check: 8/8" in out

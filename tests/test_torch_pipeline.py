@@ -311,7 +311,7 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.autotune, repro_torch.autotune.cache, repro_torch.autotune.search\n"
         "import repro_torch.ft, repro_torch.checkpoint, repro_torch.launch.render_gateway\n"
         "import repro_torch.gateway, repro_torch.gateway.worker, repro_torch.gateway.transport\n"
-        "import repro_torch.gateway.worker_main\n"
+        "import repro_torch.gateway.worker_main, repro_torch.sharding.policies\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
     )

@@ -330,11 +330,27 @@ def test_server_rejects_unservable_scene_shards(scene, cfg, single_thread):
 
 
 def test_server_unported_options_raise(scene, cfg, tmp_path, monkeypatch):
-    """mesh= raises naming item 8. autotune= (once unported, item 11) opens
-    the handle with tile_params='auto', and the served image is bitwise the
-    render at the tuned triple."""
-    with pytest.raises(NotImplementedError, match="item 8"):
-        RenderServer({"scene": scene}, device="cpu", mesh=object())
+    """mesh= (once unported, item 8) serves over a mesh of virtual CPU
+    devices: a (2, 1) mesh pads each dispatch to the data extent and every
+    served image is bitwise the one-device render; device= with mesh=
+    raises. autotune= (once unported, item 11) opens the handle with
+    tile_params='auto', and the served image is bitwise the render at the
+    tuned triple."""
+    from repro_torch.launch.mesh import make_render_mesh
+
+    mesh = make_render_mesh(["cpu", "cpu"])
+    with pytest.raises(ValueError, match="not both"):
+        RenderServer({"scene": scene}, device="cpu", mesh=mesh)
+    cams = [make_camera((0, 1, 4), (0, 0, 0), 64, 64), make_camera(_eye(1), (0, 0, 0), 64, 64),
+            make_camera(_eye(2), (0, 0, 0), 64, 64)]
+    with RenderServer({"scene": scene}, mesh=mesh, max_batch=3) as server:
+        served = server.run([(0.0, RenderRequest(i, "scene", c, cfg)) for i, c in enumerate(cams)],
+                            realtime=False)
+        assert server.mesh is mesh and server.device == torch.device("cpu")
+        assert server.stats.summary()["padded"] == 1   # 3 requests, 4 lanes
+    with engine.open(scene, cfg, device="cpu") as r:
+        for i, c in enumerate(cams):
+            assert torch.equal(served[i].image, r.render(c).image)
     from repro_torch.autotune import cache as at_cache
 
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
