@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port of the GS-TG renderer on one GPU.
+"""Smoke run of the PyTorch/CUDA port of the GS-TG renderer, and of its LM
+serving path, on one GPU.
 
     python3 chip_smoke.py
 
@@ -220,11 +221,30 @@ line each:
                 and on the host with the same code: loss rtol 1e-4, each
                 gradient max-abs within 1e-4 of its largest magnitude (the
                 CPU tests' bounds against the JAX package).
-  7. kernels  — every ported kernel: launches on its path, on the sharded
+  7. lm      — the LM serving path (models/*, launch/serve.py), eager,
+                weights from a seeded generator on the card. (a)
+                granite-3-2b at full width and depth (40 layers, d_model
+                2,048, 2,635,237,376 parameters) in bf16, served through the
+                serve loop at batch 8, prompt 64, gen 64 after a short
+                warm-up: the median prefill and decode step (CUDA events
+                between steps), tok/s, peak memory, the step's bound (the
+                weights and the cache over the memory rate), one more
+                decode step under torch.profiler (kernels, device ms, busy
+                share); gates: finite logits, every token inside the vocab.
+                (b) The same model in float32 (TF32 off): 32 teacher-forced
+                positions of 2 prompts through decode_step within 2e-3 of
+                forward. (c) mamba2-370m and granite-moe-1b-a400m at full
+                width in bf16, batch 4, prompt 16, gen 16, as (a). (d) The
+                smoke config of each of the nine decoders in float32 on the
+                card and on the host from the same weights: 8
+                teacher-forced steps within 1e-4 of the host's logits and
+                2e-3 of the card's forward. None of the four kernels may
+                launch in the phase.
+  8. kernels  — every ported kernel: launches on its path, on the sharded
                 path, in the serve phase's realtime run, over the
-                autotune phase, in the gateway's in-process run and on the
+                autotune phase, in the gateway's in-process run, on the
                 mesh phase's (2, 2) mesh (its batch and tile_baseline
-                frame), error, times,
+                frame) and in the lm phase (none), error, times,
                 bound, library time (torch.sort + gather for the bitonic
                 sort). The train phase launches none of them.
 
@@ -489,6 +509,7 @@ def profile_step(on_card, fn, top=12) -> dict:
             if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
     return {"wall_ms": wall_ms, "device_ms": sum(r[1] for r in rows),
+            "kernel_launches": sum(r[2] for r in rows),
             "top_kernels_ms": [{"kernel": k[:120], "ms": ms, "launches": n}
                                for k, ms, n in rows[:top]]}
 
@@ -1872,7 +1893,7 @@ def stage_breakdown(events) -> dict:
             "glue_ms": glue, "spans_per_frame": {k: sorted(v) for k, v in counts.items()}}
 
 
-def busy_share(on_card, fn, frames: int = 3) -> dict:
+def busy_share(on_card, fn, frames: int = 3, trace: str = "frame_profile.json") -> dict:
     """``frames`` calls of ``fn`` (a frame, ending in a synchronize) under
     torch.profiler, each in its own range: per frame, the union of the
     device's kernel, copy and memset intervals inside the frame's host-clock
@@ -1889,7 +1910,7 @@ def busy_share(on_card, fn, frames: int = 3) -> dict:
             with record_function(f"chip_smoke/frame{i}"):
                 fn()
                 torch.cuda.synchronize()
-    path = ROOT / "build" / "repro_torch" / "frame_profile.json"
+    path = ROOT / "build" / "repro_torch" / trace
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
@@ -2064,6 +2085,212 @@ def timed_phase(dev, on_card, check, smi, cfg, scene, cam, cams, main_one, d2_on
           f"timed: CLI counters {cli['printed']} != in-process {cli_want}")
     check(not cli_errors and len(cli_stages) >= 7,
           f"timed: CLI trace errors {cli_errors[:3]}, stage spans {cli_stages}")
+
+
+# The lm phase: the LM serving path (models/*, launch/serve.py) at full width.
+LM_SERVE = dict(arch="granite-3-2b", batch=8, prompt_len=64, gen_len=64)
+LM_SMALL = (dict(arch="mamba2-370m", batch=4, prompt_len=16, gen_len=16),
+            dict(arch="granite-moe-1b-a400m", batch=4, prompt_len=16, gen_len=16))
+LM_F32_PROMPTS, LM_F32_POSITIONS = 2, 32
+LM_SMOKE_STEPS = 8
+LM_DECODE_VS_FORWARD = 2e-3   # the JAX package's own bound (test_models_attention.py)
+LM_CARD_VS_HOST = 1e-4
+
+
+def lm_teacher_forced(cfg, params, tokens):
+    """Logits (B, T, V) of ``tokens`` (B, T) stepped through decode_step by
+    the serve loop (``generate`` with nothing to generate)."""
+    import torch
+
+    from repro_torch.launch.serve import generate
+
+    logits = []
+    generate(cfg, params, tokens, 0, on_step=lambda phase, pos, lg, nxt: logits.append(lg))
+    return torch.stack(logits, dim=1)
+
+
+def lm_forward_batch(cfg, tokens):
+    """forward's batch for text ``tokens``: a vision stub gets no patches,
+    so that its positions are decode_step's."""
+    import torch
+
+    batch = {"tokens": tokens}
+    if cfg.frontend == "vision_stub":
+        batch["patch_embeds"] = torch.zeros(tokens.shape[0], 0, cfg.d_model,
+                                            device=tokens.device)
+    return batch
+
+
+def lm_serve_run(dev, on_card, check, smi, cfg, batch, prompt_len, gen_len, seed=0,
+                 profile=False) -> dict:
+    """``cfg`` served through the serve loop (launch/serve.py::generate) at
+    ``batch`` x (``prompt_len`` + ``gen_len``), after a short warm-up run:
+    each step's time (CUDA events between steps), tok/s, peak memory and
+    the step's bound (the weights and the cache read once over the memory
+    rate). Gates: finite logits, every token inside the vocab. With
+    ``profile``, one more decode step under torch.profiler: its kernels,
+    their device time and the device's busy share of the step."""
+    import torch
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_cache_spec, build_param_spec, decode_step, init_cache
+    from repro_torch.models.spec import init_from_spec, spec_bytes
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_from_spec(build_param_spec(cfg), gen, dev)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen, device=dev)
+    init_s = time.perf_counter() - t_phase
+    generate(cfg, params, prompts[:, :2], 2)                     # warm-up
+
+    marks, finite = [], []
+
+    def mark():
+        if on_card:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def on_step(phase, pos, logits, nxt):
+        marks.append((phase, mark()))
+        finite.append(torch.isfinite(logits).all())
+
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    start = mark()
+    tokens = generate(cfg, params, prompts, gen_len, on_step=on_step)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = {"prefill": [], "decode": []}
+    prev = start
+    for phase, m in marks:
+        step_ms[phase].append(prev.elapsed_time(m) if on_card else (m - prev) * 1e3)
+        prev = m
+    weight_bytes = spec_bytes(build_param_spec(cfg))
+    cache_bytes = spec_bytes(build_cache_spec(cfg, batch, prompt_len + gen_len))
+    decode_ms = statistics.median(step_ms["decode"])
+    out = {
+        "phase": "lm", "check": "serve", "arch": cfg.name, "nvidia_smi": smi,
+        "dtype": cfg.param_dtype, "params": cfg.param_count(), "weight_gb": weight_bytes / 1e9,
+        "batch": batch, "prompt_len": prompt_len, "gen_len": gen_len,
+        "tokens_shape": list(tokens.shape), "init_s": init_s,
+        "prefill_step_ms_median": statistics.median(step_ms["prefill"]),
+        "decode_step_ms_median": decode_ms,
+        "decode_step_ms_min": min(step_ms["decode"]),
+        "decode_step_ms_max": max(step_ms["decode"]),
+        "wall_s": wall, "tok_s_incl_prefill": batch * tokens.shape[1] / wall,
+        "decode_tok_s": batch / decode_ms * 1e3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+        "bound_ms": (weight_bytes + cache_bytes) / PEAK_BYTES * 1e3, "bound_by": "bytes",
+        "bound_weights_ms": weight_bytes / PEAK_BYTES * 1e3, "cache_gb": cache_bytes / 1e9,
+    }
+    if profile:
+        cache = init_cache(cfg, batch, prompt_len + gen_len, dev)
+
+        def step():
+            decode_step(cfg, params, cache, prompts[:, 0], 0)
+
+        out["decode_step_profile"] = profile_step(on_card, step, top=8)
+        out["decode_step_busy"] = busy_share(on_card, step, trace="lm_decode_profile.json")
+    emit(out)
+    check(bool(torch.stack(finite).all()), f"lm: {cfg.name} served a non-finite logit")
+    check(tuple(tokens.shape) == (batch, gen_len) and bool((tokens >= 0).all())
+          and bool((tokens < cfg.vocab).all()),
+          f"lm: {cfg.name} tokens of shape {tuple(tokens.shape)} or outside the vocab")
+    return out
+
+
+def lm_phase(dev, on_card, check, smi, full: bool = True) -> dict:
+    """The LM serving path (models/*, launch/serve.py). (a) granite-3-2b at
+    full width and depth in bf16 served at batch 8, prompt 64, gen 64; (b)
+    the same model in float32, 32 teacher-forced positions of 2 prompts
+    through decode_step against forward (2e-3); (c) mamba2-370m and
+    granite-moe-1b-a400m at full width in bf16, batch 4, prompt 16, gen 16;
+    (d) the smoke config of every decoder in float32 on the card and on the
+    host from the same weights: 8 teacher-forced steps within 1e-4 of the
+    host's logits and 2e-3 of the card's forward. ``full=False`` (a
+    rehearsal on the host) serves the smoke configs in (a)-(c). Returns the
+    kernels' launches over the phase (none of them is on this path)."""
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config, get_smoke_config
+    from repro_torch.kernels import build
+    from repro_torch.models import build_param_spec, forward
+    from repro_torch.models.spec import init_from_spec
+    from repro_torch.utils import tree_map
+
+    get = get_config if full else get_smoke_config
+    t_phase = time.perf_counter()
+    build.reset_launches()
+
+    # (a) granite-3-2b, bf16, batch 8 x (64 + 64)
+    run = dict(LM_SERVE)
+    lm_serve_run(dev, on_card, check, smi, get(run.pop("arch")), **run, profile=True)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # (b) the same model in float32: decode_step against forward
+    cfg32 = dataclasses.replace(get(LM_SERVE["arch"]), param_dtype="float32",
+                                activation_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = init_from_spec(build_param_spec(cfg32), gen, dev)
+    toks = torch.randint(0, cfg32.vocab, (LM_F32_PROMPTS, LM_F32_POSITIONS), generator=gen,
+                         device=dev)
+    dec = lm_teacher_forced(cfg32, params, toks)
+    full_logits, _ = forward(cfg32, params, {"tokens": toks})
+    err = float((dec - full_logits).abs().max())
+    emit({"phase": "lm", "check": "f32_decode_vs_forward", "arch": cfg32.name,
+          "nvidia_smi": smi, "params": cfg32.param_count(), "prompts": LM_F32_PROMPTS,
+          "positions": LM_F32_POSITIONS, "max_abs_err": err,
+          "max_abs_logit": float(full_logits.abs().max()), "tol": LM_DECODE_VS_FORWARD,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30 if on_card else None})
+    check(err <= LM_DECODE_VS_FORWARD,
+          f"lm: {cfg32.name} float32 decode {err} from forward (> {LM_DECODE_VS_FORWARD})")
+    del params, dec, full_logits
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) mamba2-370m and granite-moe-1b-a400m, bf16, batch 4 x (16 + 16)
+    for run in LM_SMALL:
+        run = dict(run)
+        lm_serve_run(dev, on_card, check, smi, get(run.pop("arch")), **run)
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # (d) every decoder's smoke config, float32, card against host
+    host = torch.device("cpu")
+    for arch in sorted(ARCHS):
+        cfg = get_smoke_config(arch)
+        if cfg.family == "encoder":
+            continue
+        params_h = init_from_spec(build_param_spec(cfg), torch.Generator().manual_seed(2), host)
+        toks_h = torch.randint(0, cfg.vocab, (2, LM_SMOKE_STEPS),
+                               generator=torch.Generator().manual_seed(3))
+        params_d = tree_map(lambda x: x.to(dev), params_h)
+        toks_d = toks_h.to(dev)
+        dec_d = lm_teacher_forced(cfg, params_d, toks_d)
+        dec_h = lm_teacher_forced(cfg, params_h, toks_h)
+        fwd_d, _ = forward(cfg, params_d, lm_forward_batch(cfg, toks_d))
+        vs_host = float((dec_d.cpu() - dec_h).abs().max())
+        vs_fwd = float((dec_d - fwd_d).abs().max())
+        emit({"phase": "lm", "check": "smoke_card_vs_host", "arch": arch,
+              "steps": LM_SMOKE_STEPS, "card_vs_host": vs_host, "decode_vs_forward": vs_fwd,
+              "max_abs_logit": float(dec_h.abs().max())})
+        check(vs_host <= LM_CARD_VS_HOST,
+              f"lm: {arch} smoke decode on the card {vs_host} from the host's")
+        check(vs_fwd <= LM_DECODE_VS_FORWARD,
+              f"lm: {arch} smoke decode {vs_fwd} from the card's forward")
+
+    launches = dict(build.LAUNCHES)
+    emit({"phase": "lm", "check": "phase", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t_phase, "launches": launches})
+    check(not any(launches.values()), f"lm: a GS-TG kernel launched on the LM path: {launches}")
+    return launches
 
 
 def main() -> int:
@@ -2733,7 +2960,10 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
         train_phase(dev, on_card, check, cam, main_image.clone(), n_main, width, height)
     del main_image
 
-    # -- 7. every ported kernel --------------------------------------------------
+    # -- 7. the LM serving path at full width (no GS-TG kernel on it) ------------
+    lm_launches = lm_phase(dev, on_card, check, smi)
+
+    # -- 8. every ported kernel --------------------------------------------------
     replaces = {
         "bitmask_gen": ("src/repro/kernels/bitmask_gen.py:74", "gstg"),
         "raster_group_fused": ("src/repro/kernels/raster_tile.py:229", "gstg"),
@@ -2759,6 +2989,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
             "launches_autotune": autotune_launches[name],
             "launches_gateway": gateway_launches[name],
             "launches_mesh": mesh_launches[name],
+            "launches_lm": lm_launches[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": k.get("library_ms"),

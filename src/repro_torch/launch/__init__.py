@@ -1,2 +1,3 @@
 """Launch-time policies and CLIs (mirror of ``repro.launch``): the render
-mesh (``mesh.py``) and the render, serve and gateway CLIs."""
+mesh (``mesh.py``), the render, serve and gateway CLIs, and the LM serve
+loop and CLI (``serve.py``)."""

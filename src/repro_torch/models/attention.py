@@ -1,0 +1,146 @@
+"""GQA attention: chunked online-softmax prefill + KV-cache decode (mirror of
+``repro.models.attention``, forward only).
+
+The full (S, S) score matrix is never materialized: the kv axis is walked in
+``chunk``-sized blocks with running (max, sum, acc) online-softmax state.
+Operands keep their dtype, the contractions accumulate in float32 (the JAX
+package's ``preferred_element_type``): bf16 operands are widened, which is
+exact, and the products taken in float32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.layers import apply_rope, rope_angles
+
+NEG_INF = -1e30
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int):
+    """(B, S, KV, hd) -> (B, S, KV*n_rep, hd): each kv head repeated n_rep
+    times in a row (heads g*n_rep .. g*n_rep + n_rep - 1 share kv head g)."""
+    if n_rep == 1:
+        return x
+    return x.repeat_interleave(n_rep, dim=2)
+
+
+def _scaled(x: torch.Tensor, scale: float):
+    """``x * scale`` in x's dtype, the scalar first rounded to that dtype (as
+    JAX rounds a Python scalar against a bf16 array)."""
+    s = torch.tensor(scale, dtype=x.dtype).item()
+    return (x * s).to(x.dtype)
+
+
+def chunked_attention(
+    q: torch.Tensor,             # (B, Sq, H, hd)
+    k: torch.Tensor,             # (B, Skv, H, hd)   (already GQA-expanded)
+    v: torch.Tensor,             # (B, Skv, H, hd)
+    causal: bool,
+    chunk: int = 512,
+    q_offset: int = 0,           # absolute position of q[0] (for causal mask)
+) -> torch.Tensor:
+    """Online-softmax attention over kv blocks. O(Sq * chunk) memory."""
+    out, _, _ = _chunked_attention_fwd_impl(q, k, v, causal, chunk, q_offset)
+    return out
+
+
+def _chunked_attention_fwd_impl(q, k, v, causal, chunk, q_offset):
+    """Returns (out (B,Sq,H,hd), m (B,H,Sq), l (B,H,Sq))."""
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    dev = q.device
+    qf = _scaled(q, hd ** -0.5).float()
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=dev)
+    # The last block is cut short where the JAX package pads it with zeros
+    # and masks the pad: masked scores add exp(-1e30 - m) = 0 either way.
+    for start in range(0, Skv, chunk):
+        kc = k[:, start:start + chunk]
+        vc = v[:, start:start + chunk]
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kc.float())   # (B,H,Sq,c) f32
+        if causal:
+            kv_pos = start + torch.arange(kc.shape[1], device=dev)
+            mask = kv_pos[None, :] <= q_pos[:, None]
+            s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(vc.dtype).float(), vc.float()
+        )
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.to(k.dtype)
+    return out.transpose(1, 2), m, l  # out (B, Sq, H, hd)
+
+
+def _qkv(p: dict, x: torch.Tensor, cfg):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, KV, hd)
+    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(H, hd)
+        k = k + p["bk"].reshape(KV, hd)
+        v = v + p["bv"].reshape(KV, hd)
+    return q, k, v
+
+
+def attention_forward(
+    p: dict,                    # {'wq','wk','wv','wo'[,'bq','bk','bv']} flat
+    x: torch.Tensor,            # (B, S, D)
+    cfg,
+    positions: torch.Tensor,    # (S,) absolute positions
+    causal: bool,
+) -> torch.Tensor:
+    B, S, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _qkv(p, x, cfg)
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    k = _repeat_kv(k, H // KV)
+    v = _repeat_kv(v, H // KV)
+    out = chunked_attention(q, k, v, causal, cfg.attn_chunk, 0)
+    out = out.reshape(B, S, H * hd).to(x.dtype)
+    return out @ p["wo"]
+
+
+def attention_decode(
+    p: dict,
+    x: torch.Tensor,            # (B, 1, D) current token activations
+    cache_k: torch.Tensor,      # (B, S_max, KV, hd)
+    cache_v: torch.Tensor,
+    pos: int,                   # current position
+    cfg,
+):
+    """One decode step against the KV cache, which it updates in place at
+    ``pos``. Returns (out (B,1,D), cache_k, cache_v)."""
+    B, _, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    S_max = cache_k.shape[1]
+
+    q, k, v = _qkv(p, x, cfg)
+    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    cos, sin = rope_angles(posv, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+
+    # Grouped-query attention over the whole cache in float32: query head
+    # g*(H//KV) + r reads kv head g (the order of _repeat_kv).
+    qg = q.reshape(B, KV, H // KV, hd).float() * hd ** -0.5
+    s = torch.einsum("bkgd,bskd->bkgs", qg, cache_k.float())   # (B, KV, G, S_max)
+    valid = torch.arange(S_max, device=x.device) <= pos
+    s = torch.where(valid, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", w, cache_v.float())
+    out = out.reshape(B, 1, H * hd).to(x.dtype)
+    return out @ p["wo"], cache_k, cache_v

@@ -1,0 +1,60 @@
+"""Shared model layers: norms, embeddings, rotary embeddings, losses (mirror
+of ``repro.models.layers``)."""
+from __future__ import annotations
+
+import torch
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6):
+    """RMSNorm: the statistics in float32, the normalize multiply in the
+    activation dtype (as the JAX package casts them)."""
+    xf = x.float()
+    var = (xf * xf).sum(-1) / x.shape[-1]
+    inv = torch.rsqrt(var + eps)[..., None]
+    return x * inv.to(x.dtype) * weight.to(x.dtype)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions (...,) -> cos/sin (..., head_dim//2) in float32."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """x (..., S, H, hd); cos/sin (..., S, hd//2) broadcast over heads.
+
+    Each rotation pairs element i with element i + hd/2 (the two halves),
+    which is what the JAX package's code does, whatever its docstring says."""
+    half = x.shape[-1] // 2
+    x1 = x[..., :half]
+    x2 = x[..., half:]
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor):
+    """Token embedding lookup (the JAX package's gather form; its one-hot
+    matmul form serves vocab-sharded tables and has no caller here)."""
+    return table[tokens]
+
+
+def softmax_xent(
+    logits: torch.Tensor,     # (B, S, V)
+    labels: torch.Tensor,     # (B, S) int
+    mask: torch.Tensor,       # (B, S) 0/1 valid positions
+    vocab: int,               # logical (unpadded) vocab size
+):
+    """Stable mean cross-entropy; padded vocab tail masked out."""
+    logits = logits.float()
+    V = logits.shape[-1]
+    if V > vocab:
+        pad_mask = torch.arange(V, device=logits.device) >= vocab
+        logits = torch.where(pad_mask, -1e30, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,0 +1,112 @@
+"""Top-k mixture-of-experts with per-group capacity dispatch (mirror of
+``repro.models.moe``, forward only).
+
+Dispatch is per GROUP = batch row: each row's S*k assignments are ranked
+within their expert by a stable sort on the expert id; the first
+``capacity`` of each expert keep a slot, the rest go to a trash slot at
+``capacity`` and are dropped (GShard semantics). The combine weights each
+slot in expert space and scatter-adds it back to its token.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def router_topk(
+    logits: torch.Tensor,   # (..., E)
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (weights (..., k), ids (..., k)); renormalized over top-k.
+
+    ``jax.lax.top_k`` breaks ties by the lower index; ``torch.topk`` on CUDA
+    promises no order among equal values (float32 router probabilities of
+    real inputs are practically never equal)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    weights, ids = torch.topk(probs, k, dim=-1)
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    return weights, ids
+
+
+def load_balance_loss(logits: torch.Tensor, ids: torch.Tensor, n_experts: int):
+    """Switch-style aux loss: E * sum_e f_e * p_e, counts by a scatter-add."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    p_mean = probs.reshape(-1, n_experts).mean(0)
+    flat = ids.reshape(-1)
+    counts = torch.zeros(n_experts, dtype=torch.float32, device=logits.device)
+    counts.index_add_(0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                                          device=logits.device))
+    f = counts / torch.clamp(counts.sum(), min=1.0)
+    return n_experts * (f * p_mean).sum()
+
+
+def capacity_of(cfg, S: int) -> int:
+    return max(int(S * cfg.experts_per_token / cfg.n_experts * cfg.capacity_factor),
+               min(8, S))
+
+
+def expert_slots(eid: torch.Tensor, n_experts: int, capacity: int):
+    """eid (B, A) expert of each assignment -> (pos, keep, slot) (B, A):
+    the assignment's rank among its group's assignments to that expert (in
+    assignment order), whether it fits the capacity, and its slot (the
+    trash slot ``capacity`` when dropped)."""
+    B, A = eid.shape
+    e_sorted, order = torch.sort(eid, dim=-1, stable=True)
+    experts = torch.arange(n_experts, dtype=eid.dtype, device=eid.device)
+    seg_start = torch.searchsorted(e_sorted, experts.expand(B, n_experts).contiguous())
+    pos_sorted = (torch.arange(A, device=eid.device)
+                  - torch.gather(seg_start, 1, e_sorted))
+    pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
+    keep = (pos >= 0) & (pos < capacity)
+    slot = torch.where(keep, pos, capacity)
+    return pos, keep, slot
+
+
+def moe_ffn(
+    p: dict,            # {'router' (D,E), 'w1' (E,D,F), 'w3' (E,D,F), 'w2' (E,F,D)}
+    x: torch.Tensor,    # (B, S, D)
+    cfg,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output (B,S,D), aux_loss ())."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    A = S * k  # assignments per group (= per batch row)
+    dev = x.device
+
+    logits = x.float() @ p["router"].float()          # f32 accumulation
+    weights, ids = router_topk(logits, k)            # (B, S, k)
+    aux = load_balance_loss(logits, ids, E)
+
+    capacity = capacity_of(cfg, S)
+    eid = ids.reshape(B, A)
+    _, keep, slot = expert_slots(eid, E, capacity)
+    flat_slot = eid * (capacity + 1) + slot          # (B, A) into E*(C+1)
+    tok = torch.arange(S, device=dev).repeat_interleave(k)   # (A,)
+
+    # --- dispatch: each kept assignment's token into its (expert, slot);
+    # dropped ones all land in the trash slot, which is cut off. ---
+    xe = torch.zeros(B, E * (capacity + 1), D, dtype=x.dtype, device=dev)
+    xe.scatter_(1, flat_slot[..., None].expand(B, A, D), x[:, tok])
+    xe = xe.view(B, E, capacity + 1, D)[:, :, :capacity]
+
+    # --- expert computation (SwiGLU), batched over (B, E) ---
+    a = torch.einsum("becd,edf->becf", xe, p["w1"])
+    silu = a * torch.sigmoid(a.float()).to(a.dtype)
+    h = silu * torch.einsum("becd,edf->becf", xe, p["w3"])
+    ye = torch.einsum("becf,efd->becd", h, p["w2"])
+
+    # --- combine: weight the slots in expert space, scatter-add each slot
+    # to its token (an empty slot goes to the dropped row S). ---
+    wts = torch.where(keep, weights.reshape(B, A), 0.0).to(x.dtype)
+    wslot = torch.zeros(B, E * (capacity + 1), dtype=x.dtype, device=dev)
+    wslot.scatter_(1, flat_slot, wts)
+    tok_slot = torch.full((B, E * (capacity + 1)), S, dtype=torch.int64, device=dev)
+    tok_slot.scatter_(1, flat_slot, tok.expand(B, A).contiguous())
+    wslot = wslot.view(B, E, capacity + 1)[:, :, :capacity]
+    tok_slot = tok_slot.view(B, E, capacity + 1)[:, :, :capacity]
+    contrib = ye * wslot[..., None]                  # (B, E, C, D)
+    out = torch.zeros(B, S + 1, D, dtype=x.dtype, device=dev)
+    out.scatter_add_(1, tok_slot.reshape(B, E * capacity, 1).expand(-1, -1, D),
+                     contrib.reshape(B, E * capacity, D))
+    return out[:, :S], aux

@@ -312,6 +312,9 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.ft, repro_torch.checkpoint, repro_torch.launch.render_gateway\n"
         "import repro_torch.gateway, repro_torch.gateway.worker, repro_torch.gateway.transport\n"
         "import repro_torch.gateway.worker_main, repro_torch.sharding.policies\n"
+        "import repro_torch.models, repro_torch.models.spec, repro_torch.launch.serve\n"
+        "import repro_torch.examples.serve_lm\n"
+        "from repro_torch.configs import ARCHS, get_config, get_smoke_config\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
     )
