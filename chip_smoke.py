@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port of the GS-TG renderer, and of its LM
-serving path, on one GPU.
+serving and training paths, on one GPU.
 
     python3 chip_smoke.py
 
@@ -240,11 +240,32 @@ line each:
                 teacher-forced steps within 1e-4 of the host's logits and
                 2e-3 of the card's forward. None of the four kernels may
                 launch in the phase.
-  8. kernels  — every ported kernel: launches on its path, on the sharded
+  8. lm_train — the LM training path (launch/steps.py::make_train_step,
+                launch/train.py, the flash and MoE-dispatch backwards as
+                autograd Functions), outside inference mode. (a)
+                granite-3-2b at full width and depth in bf16, AdamW, remat,
+                batch 2 x seq 4,096: a warm-up step (rate 0) then 4 steps on
+                one repeated TokenStream batch: loss and grad_norm each
+                step, median step ms, tok/s, peak memory, the step's bound
+                (matmuls at the bf16 rate, attention's float32 contractions
+                at the float32 rate), one more step under torch.profiler
+                and its busy share; gates: finite, the last loss below the
+                first. (b) granite-moe-1b-a400m and mamba2-370m likewise, 3
+                steps. (c) The flash Function against autograd through a
+                full-softmax attention (float32, B 2, S 1,024, H 8, hd 64,
+                chunk 256, causal and not) and the dispatch Function
+                against autograd through the plain gather at
+                granite-moe's train shape, within 5e-5. (d) Every smoke
+                config in float32: loss and every gradient leaf on the card
+                against the host's (1e-5 relative, 1e-4 of the leaf's max).
+                (e) The train CLI resuming a step-50 checkpoint on the card,
+                and an in-process resume, against 52 steps straight through
+                (1e-5 relative). None of the four kernels may launch.
+  9. kernels  — every ported kernel: launches on its path, on the sharded
                 path, in the serve phase's realtime run, over the
                 autotune phase, in the gateway's in-process run, on the
                 mesh phase's (2, 2) mesh (its batch and tile_baseline
-                frame) and in the lm phase (none), error, times,
+                frame), in the lm and lm_train phases (none), error, times,
                 bound, library time (torch.sort + gather for the bitonic
                 sort). The train phase launches none of them.
 
@@ -254,7 +275,9 @@ file, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -490,28 +513,52 @@ def loss_and_grads(scene, cam, target, cfg, lam):
 
 
 def profile_step(on_card, fn, top=12) -> dict:
-    """One call of ``fn`` under torch.profiler: its wall time, the device
-    time of all its kernels, and the ``top`` kernels by device time (ms and
-    launches). Operator rows are left out: they repeat their kernels'
-    time."""
+    """One call of ``fn`` under torch.profiler, in a range of its own ended
+    by a synchronize: its wall time, the device time of all its kernels,
+    the ``top`` kernels by device time (ms and launches) and, on the card,
+    the device's busy share of the range (the union of its device
+    intervals inside the range's host span, over that span; read from the
+    profiler's events, as a train step's trace file runs to hundreds of MB).
+    Operator rows are left out: they repeat their kernels' time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
     t = time.perf_counter()
     with profile(activities=acts) as prof:
-        fn()
-        if on_card:
-            torch.cuda.synchronize()
+        with record_function("chip_smoke/step"):
+            fn()
+            if on_card:
+                torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA and e.key != "chip_smoke/step"]
     rows.sort(key=lambda r: -r[1])
-    return {"wall_ms": wall_ms, "device_ms": sum(r[1] for r in rows),
-            "kernel_launches": sum(r[2] for r in rows),
-            "top_kernels_ms": [{"kernel": k[:120], "ms": ms, "launches": n}
-                               for k, ms, n in rows[:top]]}
+    out = {"wall_ms": wall_ms, "device_ms": sum(r[1] for r in rows),
+           "kernel_launches": sum(r[2] for r in rows),
+           "top_kernels_ms": [{"kernel": k[:120], "ms": ms, "launches": n}
+                              for k, ms, n in rows[:top]]}
+    if on_card:
+        # The range appears twice, on the host and as a device annotation
+        # over the step's device work (left out of the rows above too): only
+        # kernels, copies and memsets are device intervals.
+        events = prof.events()
+        (step,) = [e for e in events if e.name == "chip_smoke/step"
+                   and e.device_type == DeviceType.CPU]
+        f0, f1 = step.time_range.start, step.time_range.end
+        spans = sorted((max(e.time_range.start, f0), min(e.time_range.end, f1))
+                       for e in events if e.device_type == DeviceType.CUDA
+                       and e.name != "chip_smoke/step"
+                       and e.time_range.end > f0 and e.time_range.start < f1)
+        busy, end = 0.0, f0
+        for lo, hi in spans:
+            if hi > end:
+                busy += hi - max(lo, end)
+                end = hi
+        out.update(step_span_ms=(f1 - f0) / 1e3, busy_ms=busy / 1e3,
+                   busy_share=busy / (f1 - f0))
+    return out
 
 
 def train_phase(dev, on_card, check, cam, target, n_main, width, height) -> None:
@@ -2293,6 +2340,369 @@ def lm_phase(dev, on_card, check, smi, full: bool = True) -> dict:
     return launches
 
 
+# The lm_train phase: the LM training path (launch/steps.py, launch/train.py).
+# Only granite-3-2b's step is profiled (its busy share); the profiler's
+# processing of a 30,000-70,000-kernel step costs 20-50 s, so the other two
+# count their step's aten operators instead (count_ops).
+LM_TRAIN = dict(arch="granite-3-2b", batch=2, seq=4096, steps=4, profile=True)
+LM_TRAIN_SMALL = (dict(arch="granite-moe-1b-a400m", batch=2, seq=4096, steps=3, profile=False),
+                  dict(arch="mamba2-370m", batch=2, seq=4096, steps=3, profile=False))
+LM_FLASH = dict(B=2, S=1024, H=8, hd=64, chunk=256)
+LM_FLASH_TOL = 5e-5       # the JAX package's own bound (tests/test_models_attention.py)
+# The MoE dispatch at granite-moe-1b-a400m's train shape: batch 2 x 4,096,
+# d_model 1,024, 32 experts, top-8, capacity 4,096 * 8 / 32 * 1.25.
+LM_DISPATCH = dict(B=2, S=4096, D=1024, E=32, k=8, capacity=1280)
+# Gradients on the card against the host's, each leaf's max-abs difference
+# over its largest magnitude: cuBLAS and the CPU's BLAS sum in other orders,
+# and CUDA's scatter_add_/index_add_ in no fixed order. The CPU tests measure
+# up to 8.7e-6 between the port and the JAX package (mamba2's SSD).
+LM_GRAD_CARD_VS_HOST = 1e-4
+LM_LOSS_CARD_VS_HOST = 1e-5   # relative, as the CPU tests hold values
+LM_RESUME_RTOL = 1e-5         # a resumed run's losses against straight through
+LM_CLI_ARCH, LM_CLI_STEPS = "granite-3-2b", (50, 52)   # the CLI checkpoints at 50
+PEAK_BF16 = 989e12            # H100 SXM dense bf16 tensor-core peak (data sheet)
+
+
+def lm_train_bound(cfg, batch: int, seq: int) -> dict:
+    """The least time of one train step in ms, twice.
+
+    The port's own work (``bound_ms``): the model's matmuls (6 N T, plus
+    2 N T for the remat forward; N the active parameters) at the bf16
+    tensor-core rate, and attention's score and value contractions (4 B S^2
+    H hd a layer forward, the same again for the remat recompute, 10 B S^2
+    H hd backward) at the float32 rate: the port widens their operands to
+    float32. Every kv block is computed, causal or not, as the port does.
+
+    The work the step needs (``needed_bound_ms``): 6 N T, no remat forward,
+    and attention's causal pairs only (S (S + 1) / 2 of the S^2; a forward
+    of 2 contractions, a backward of 4), all at the parameters' dtype's
+    tensor-core rate.
+
+    Both: the optimizer's bytes (AdamW reads p, g, m, v and writes p, m,
+    v) over the memory rate, the larger of the two times. Mamba's SSD
+    contractions are not counted."""
+    from repro_torch.models.spec import torch_dtype
+
+    tokens = batch * seq
+    n = cfg.active_param_count()
+    remat = 2 if cfg.remat else 0
+    mm_flops = (6 + remat) * n * tokens
+    n_attn = sum(1 for mixer, _ in cfg.pattern if mixer == "attn") * cfg.n_units
+    attn_fwd = 4 * batch * seq * seq * cfg.n_heads * cfg.head_dim * n_attn
+    attn_flops = attn_fwd * (1 + (1 if cfg.remat else 0) + 2.5)
+    causal_fwd = 4 * batch * (seq * (seq + 1) // 2) * cfg.n_heads * cfg.head_dim * n_attn
+    needed_flops = 6 * n * tokens + 3 * causal_fwd
+    width = torch_dtype(cfg.param_dtype).itemsize
+    opt_bytes = cfg.param_count() * (3 * width + 2 * 4 + 2 * 4 + width)
+    mm_rate = PEAK_BF16 if cfg.param_dtype == "bfloat16" else PEAK_FP32
+    t_mm = mm_flops / mm_rate * 1e3
+    t_attn = attn_flops / PEAK_FP32 * 1e3
+    t_needed = needed_flops / mm_rate * 1e3
+    t_bytes = opt_bytes / PEAK_BYTES * 1e3
+    rate = "bf16 989 TFLOP/s" if mm_rate == PEAK_BF16 else "fp32 67 TFLOP/s"
+    return {"bound_ms": max(t_mm + t_attn, t_bytes),
+            "bound_by": "operations" if t_mm + t_attn >= t_bytes else "bytes",
+            "matmul_tflop": mm_flops / 1e12, "matmul_ms": t_mm, "matmul_rate": rate,
+            "attention_tflop": attn_flops / 1e12, "attention_ms": t_attn,
+            "attention_rate": "fp32 67 TFLOP/s", "optimizer_gb": opt_bytes / 1e9,
+            "optimizer_bytes_ms": t_bytes,
+            "needed_bound_ms": max(t_needed, t_bytes),
+            "needed_bound_by": "operations" if t_needed >= t_bytes else "bytes",
+            "needed_tflop": needed_flops / 1e12,
+            "needed_attention_tflop": 3 * causal_fwd / 1e12, "needed_rate": rate}
+
+
+def count_ops(fn) -> int:
+    """The aten operators one call of ``fn`` dispatches (its forward,
+    autograd's backward and the optimizer), counted by a TorchDispatchMode:
+    a cheap stand-in for the profiler's kernel count (an operator may
+    launch no kernel, or several)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def lm_train_run(dev, on_card, check, smi, cfg, batch, seq, steps, profile) -> dict:
+    """``cfg`` trained through make_train_step (pick_optimizer's choice,
+    warmup 1: step 0 is a warm-up whose rate is 0) on one repeated
+    TokenStream batch: ``steps`` measured steps after it, each ending in a
+    synchronize; loss and grad_norm each step, the median step ms, tok/s,
+    peak memory, the step's bounds; then one more step, under
+    torch.profiler (top kernels and the device's busy share) if
+    ``profile``, else counting its aten operators. Gates: every loss and
+    norm finite, the last loss below the first."""
+    import torch
+
+    from repro_torch.data import TokenStream, make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import build_param_spec
+    from repro_torch.models.spec import init_from_spec, spec_bytes
+    from repro_torch.optim import adafactor_init, adamw_init
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = init_from_spec(build_param_spec(cfg), torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    step_fn, optname = make_train_step(cfg, warmup=1)
+    opt = adamw_init(params) if optname == "adamw" else adafactor_init(params)
+    data = device_batch(make_batch(TokenStream(cfg.vocab, batch, seq, seed=0), 0, cfg.frontend,
+                                   cfg.n_frontend_tokens, cfg.d_model), dev)
+    sync()
+    init_s = time.perf_counter() - t_phase
+    t = time.perf_counter()
+    step_fn(params, opt, data, 0)
+    sync()
+    warmup_ms = (time.perf_counter() - t) * 1e3
+    losses, norms, step_ms = [], [], []
+    for i in range(1, steps + 1):
+        t = time.perf_counter()
+        _, _, m = step_fn(params, opt, data, i)
+        sync()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    extra = lambda: step_fn(params, opt, data, steps + 1)
+    prof = (profile_step(on_card, extra, top=10) if profile
+            else {"aten_ops": count_ops(extra)})
+    median_ms = statistics.median(step_ms)
+    out = {"phase": "lm_train", "check": "train", "arch": cfg.name, "nvidia_smi": smi,
+           "dtype": cfg.param_dtype, "params": cfg.param_count(),
+           "active_params": cfg.active_param_count(), "optimizer": optname,
+           "remat": cfg.remat, "batch": batch, "seq": seq, "steps": steps,
+           "lr": 3e-4, "warmup_steps": 1,
+           "losses": losses, "grad_norms": norms, "warmup_step_ms": warmup_ms,
+           "step_ms_median": median_ms, "step_ms_each": step_ms,
+           "tok_s": batch * seq / median_ms * 1e3, "peak_mem_gb": peak,
+           "weight_gb": spec_bytes(build_param_spec(cfg)) / 1e9, "init_s": init_s,
+           **lm_train_bound(cfg, batch, seq), "step_profile": prof,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"lm_train: {cfg.name} losses {losses} or norms {norms} not finite")
+    check(losses[-1] < losses[0], f"lm_train: {cfg.name} losses not falling: {losses}")
+    return out
+
+
+def naive_attention(q, k, v, causal: bool):
+    """Full-softmax attention, (B, S, H, hd) in and out: the plain version
+    autograd differentiates."""
+    import torch
+
+    s = torch.einsum("bqhd,bkhd->bhqk", q * q.shape[-1] ** -0.5, k)
+    if causal:
+        S = q.shape[1]
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool, device=q.device).triu(1), -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+
+
+def lm_flash_check(dev, on_card, check, smi, time_ms) -> list:
+    """models/attention.py's flash Function (forward and backward) against
+    autograd through naive_attention, float32, causal and not; then the MoE
+    dispatch Function against autograd through the plain gather and
+    scatter, at granite-moe-1b-a400m's train shape."""
+    import torch
+
+    from repro_torch.models import attention, moe
+
+    rows = []
+    B, S, H, hd, chunk = (LM_FLASH[k] for k in ("B", "S", "H", "hd", "chunk"))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, w = (torch.randn(B, S, H, hd, generator=gen, device=dev) for _ in range(4))
+    for causal in (True, False):
+        def run(fn):
+            xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            out = fn(*xs)
+            grads = torch.autograd.grad((out * w).sum(), xs)
+            return out.detach(), grads
+
+        flash = lambda a, b, c: attention.chunked_attention(a, b, c, causal, chunk, 0)
+        plain = lambda a, b, c: naive_attention(a, b, c, causal)
+        (o1, g1), (o2, g2) = run(flash), run(plain)
+        errs = {"out": float((o1 - o2).abs().max())}
+        errs.update({f"d{n}": float((a - b).abs().max()) for n, a, b in zip("qkv", g1, g2)})
+        row = {"phase": "lm_train", "check": "flash_vs_autograd", "causal": causal,
+               "nvidia_smi": smi, **LM_FLASH, "max_abs_err": errs, "tol": LM_FLASH_TOL,
+               "fwd_bwd_ms": time_ms(lambda: run(flash), reps=5),
+               "plain_fwd_bwd_ms": time_ms(lambda: run(plain), reps=5)}
+        emit(row)
+        rows.append(row)
+        check(max(errs.values()) <= LM_FLASH_TOL,
+              f"lm_train: flash (causal={causal}) {errs} from autograd (> {LM_FLASH_TOL})")
+
+    Bd, Sd, D, E, kk, cap = (LM_DISPATCH[x] for x in ("B", "S", "D", "E", "k", "capacity"))
+    # Skewed routing (expert e drawn with weight 1 / (e + 1)): the popular
+    # experts overflow their capacity, so dropped assignments are exercised.
+    weights = 1.0 / torch.arange(1, E + 1, dtype=torch.float32, device=dev)
+    eid = torch.multinomial(weights, Bd * Sd * kk, replacement=True,
+                            generator=gen).view(Bd, Sd * kk)
+    _, keep, slot = moe.expert_slots(eid, E, cap)
+    x = torch.randn(Bd, Sd, D, generator=gen, device=dev)
+    wd = torch.randn(Bd, E, cap, D, generator=gen, device=dev)
+    tok = torch.arange(Sd, device=dev).repeat_interleave(kk)
+    index = (eid * (cap + 1) + slot)[..., None].expand(-1, -1, D)
+
+    def dispatch(fn):
+        xx = x.clone().requires_grad_(True)
+        xe = fn(xx).view(Bd, E, cap + 1, D)[:, :, :cap]
+        return xe.detach(), torch.autograd.grad((xe * wd).sum(), xx)[0]
+
+    func = lambda xx: moe._Dispatch.apply(xx, eid, slot, E, cap, kk)
+    plain = lambda xx: torch.zeros(Bd, E * (cap + 1), D, device=dev).scatter(1, index, xx[:, tok])
+    (xe1, dx1), (xe2, dx2) = dispatch(func), dispatch(plain)
+    err = float((dx1 - dx2).abs().max())
+    row = {"phase": "lm_train", "check": "dispatch_vs_autograd", "nvidia_smi": smi,
+           **LM_DISPATCH, "dropped": int((~keep).sum()), "forward_equal": bool(torch.equal(xe1, xe2)),
+           "max_abs_err": err, "tol": LM_FLASH_TOL,
+           "fwd_bwd_ms": time_ms(lambda: dispatch(func), reps=5),
+           "plain_fwd_bwd_ms": time_ms(lambda: dispatch(plain), reps=5)}
+    emit(row)
+    rows.append(row)
+    check(row["dropped"] > 0 and row["forward_equal"] and err <= LM_FLASH_TOL,
+          f"lm_train: the dispatch Function {err} from autograd, forward equal "
+          f"{row['forward_equal']}")
+    return rows
+
+
+def lm_grads(cfg, params, batch):
+    """(loss, per-leaf gradients) of loss_fn, zero for a leaf the loss does
+    not reach."""
+    import torch
+
+    from repro_torch.models import loss_fn
+    from repro_torch.utils import tree_flatten, tree_unflatten
+
+    leaves = [p.detach().requires_grad_(True) for p in tree_flatten(params)[0]]
+    with torch.enable_grad():
+        loss, _ = loss_fn(cfg, tree_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(leaves, grads)]
+
+
+def lm_train_phase(dev, on_card, check, smi, time_ms, full: bool = True) -> dict:
+    """The LM training path (launch/steps.py, launch/train.py, the flash and
+    dispatch Functions). (a) granite-3-2b at full width and depth in bf16,
+    AdamW, remat, batch 2 x seq 4,096: 4 steps after a warm-up, and a
+    profiled one; (b) granite-moe-1b-a400m and mamba2-370m likewise, 3
+    steps, and one counting its operators; (c) the flash
+    and dispatch Functions against autograd (5e-5); (d) every smoke config
+    in float32, its loss and gradients on the card against the host's; (e)
+    the train CLI resuming a checkpoint on the card, against a run straight
+    through. ``full=False`` (a rehearsal on the host) trains the smoke
+    configs at seq 64 in (a)-(b). Runs outside inference mode. Returns the
+    kernels' launches over the phase (none of them is on this path)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config, get_smoke_config
+    from repro_torch.data import TokenStream, make_batch
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import device_batch, train
+    from repro_torch.models import build_param_spec
+    from repro_torch.models.spec import init_from_spec
+    from repro_torch.utils import tree_map
+
+    get = get_config if full else get_smoke_config
+    t_phase = time.perf_counter()
+    build.reset_launches()
+
+    # (a), (b): full width, bf16, batch 2 x seq 4,096
+    for run in (LM_TRAIN,) + LM_TRAIN_SMALL:
+        run = dict(run)
+        cfg = get(run.pop("arch"))
+        if not full:
+            run["seq"] = 64
+        lm_train_run(dev, on_card, check, smi, cfg, **run)
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # (c) the two Functions against autograd
+    lm_flash_check(dev, on_card, check, smi, time_ms)
+
+    # (d) every smoke config in float32, card against host
+    host = torch.device("cpu")
+    for arch in sorted(ARCHS):
+        cfg = get_smoke_config(arch)
+        params_h = init_from_spec(build_param_spec(cfg), torch.Generator().manual_seed(2), host)
+        batch_h = device_batch(make_batch(TokenStream(cfg.vocab, 2, 32, seed=3), 0, cfg.frontend,
+                                          cfg.n_frontend_tokens, cfg.d_model), host)
+        loss_h, grads_h = lm_grads(cfg, params_h, batch_h)
+        loss_d, grads_d = lm_grads(cfg, tree_map(lambda x: x.to(dev), params_h),
+                                   tree_map(lambda x: x.to(dev), batch_h))
+        loss_rel = abs(loss_d.item() - loss_h.item()) / abs(loss_h.item())
+        gaps = [float((d.cpu() - h).abs().max() / h.abs().max()) if h.abs().max() > 0
+                else float(d.abs().max()) for d, h in zip(grads_d, grads_h)]
+        emit({"phase": "lm_train", "check": "smoke_grads_card_vs_host", "arch": arch,
+              "loss_host": loss_h.item(), "loss_rel_diff": loss_rel, "leaves": len(gaps),
+              "grad_max_abs_over_max": max(gaps), "tol": LM_GRAD_CARD_VS_HOST})
+        check(loss_rel <= LM_LOSS_CARD_VS_HOST and max(gaps) <= LM_GRAD_CARD_VS_HOST,
+              f"lm_train: {arch} smoke loss {loss_rel} or gradients {max(gaps)} from the host's")
+
+    # (e) the train CLI: a checkpoint at step 50, the CLI resuming it for 2
+    # steps, an in-process resume, against 52 steps straight through
+    work = ROOT / "build" / "repro_torch" / "lm_train_ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    first, last = LM_CLI_STEPS
+    kw = dict(batch=2, seq=32, device=dev, ckpt_every=first, log_every=1)
+    t_cli = time.perf_counter()
+    quiet = contextlib.redirect_stdout(io.StringIO())   # train() prints each step
+    with quiet:
+        _, straight = train(LM_CLI_ARCH, steps=last, ckpt_dir=str(work / "straight"), **kw)
+        train(LM_CLI_ARCH, steps=first, ckpt_dir=str(work / "resumed"), **kw)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", LM_CLI_ARCH,
+           "--steps", str(last), "--batch", "2", "--seq", "32", "--device", dev.type,
+           "--ckpt-dir", str(work / "resumed")]
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                          capture_output=True, text=True, timeout=600)
+    printed = {int(m.group(1)): float(m.group(2))
+               for m in re.finditer(r"step\s+(\d+) loss=([0-9.]+)", proc.stdout)}
+    with quiet:
+        _, resumed = train(LM_CLI_ARCH, steps=last, ckpt_dir=str(work / "resumed"), **kw)
+    want = {h["step"]: h["loss"] for h in straight}
+    rel = max(abs(h["loss"] - want[h["step"]]) / abs(want[h["step"]]) for h in resumed)
+    cli_gap = max((abs(v - want[s]) for s, v in printed.items()), default=math.inf)
+    emit({"phase": "lm_train", "check": "cli_resume", "arch": LM_CLI_ARCH, "nvidia_smi": smi,
+          "cmd": " ".join(cmd[1:]), "returncode": proc.returncode,
+          "cli_resumed": "resumed from step 50" in proc.stdout, "cli_losses": printed,
+          "straight_losses": {s: want[s] for s in range(first, last)},
+          "resumed_losses": {h["step"]: h["loss"] for h in resumed},
+          "resumed_rel_diff": rel, "rtol": LM_RESUME_RTOL, "cli_abs_diff": cli_gap,
+          "stderr_tail": proc.stderr[-1500:], "seconds": time.perf_counter() - t_cli})
+    check(proc.returncode == 0 and f"resumed from step {first}" in proc.stdout
+          and sorted(printed) == [first, last - 1],
+          f"lm_train: the train CLI exit {proc.returncode}, printed {printed}")
+    check([h["step"] for h in resumed] == [first, last - 1] and rel <= LM_RESUME_RTOL,
+          f"lm_train: resumed losses {rel} from straight through")
+    # The CLI prints 4 decimals: half the last digit, plus the resume bound.
+    check(cli_gap <= 5e-5 + LM_RESUME_RTOL * max(want.values()),
+          f"lm_train: the CLI's printed losses {cli_gap} from straight through")
+
+    launches = dict(build.LAUNCHES)
+    emit({"phase": "lm_train", "check": "phase", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t_phase, "launches": launches})
+    check(not any(launches.values()),
+          f"lm_train: a GS-TG kernel launched on the LM training path: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2963,7 +3373,12 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     # -- 7. the LM serving path at full width (no GS-TG kernel on it) ------------
     lm_launches = lm_phase(dev, on_card, check, smi)
 
-    # -- 8. every ported kernel --------------------------------------------------
+    # -- 8. LM training at full width (no GS-TG kernel on it), outside inference
+    # mode: autograd saves no inference tensor --------------------------------
+    with torch.inference_mode(False):
+        lm_train_launches = lm_train_phase(dev, on_card, check, smi, time_ms)
+
+    # -- 9. every ported kernel --------------------------------------------------
     replaces = {
         "bitmask_gen": ("src/repro/kernels/bitmask_gen.py:74", "gstg"),
         "raster_group_fused": ("src/repro/kernels/raster_tile.py:229", "gstg"),
@@ -2990,6 +3405,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
             "launches_gateway": gateway_launches[name],
             "launches_mesh": mesh_launches[name],
             "launches_lm": lm_launches[name],
+            "launches_lm_train": lm_train_launches[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": k.get("library_ms"),

@@ -12,13 +12,15 @@ Leaves are flattened in jax's order — dict keys sorted, lists and tuples
 (named ones too) in order, a dataclass such as ``GaussianScene`` by its
 fields in declaration order (as ``register_dataclass`` flattens the JAX
 package's), None an empty subtree — so a checkpoint written by either
-package restores leaf for leaf in the other. :func:`tree_unflatten` puts
-restored leaves back into a tree of the saved structure.
+package restores leaf for leaf in the other (``utils/misc.py::tree_flatten``,
+re-exported here). :func:`tree_unflatten` puts restored leaves back into a
+tree of the saved structure.
 
-Restore validates hashes and returns CPU tensors, or tensors on
-``device=`` when it is given (the port's stand-in for the JAX package's
-``sharding_tree``): that is how elastic re-scaling (``ft/elastic.py``)
-resumes on other devices.
+A bfloat16 leaf is written as the JAX manager writes one (its bits as
+2-byte voids, ``|V2``) and restored as bfloat16. Restore validates hashes
+and returns CPU tensors, or tensors on ``device=`` when it is given (the
+port's stand-in for the JAX package's ``sharding_tree``): that is how
+elastic re-scaling (``ft/elastic.py``) resumes on other devices.
 """
 from __future__ import annotations
 
@@ -30,11 +32,12 @@ import os
 import queue
 import threading
 import time
-from collections.abc import Mapping
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.utils.misc import tree_flatten, tree_unflatten  # noqa: F401  (re-exported)
 
 try:  # optional: checkpoints are written uncompressed when unavailable
     import zstandard
@@ -46,71 +49,30 @@ except ImportError:  # pragma: no cover - depends on environment
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 
 
-def _children(tree) -> Optional[Tuple[list, Any]]:
-    """(children in jax's order, a rebuild function), or None for a leaf."""
-    if tree is None:
-        return [], lambda xs: None
-    if isinstance(tree, Mapping):
-        keys = sorted(tree)
-        return [tree[k] for k in keys], lambda xs: type(tree)(zip(keys, xs))
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):       # NamedTuple
-        return list(tree), lambda xs: type(tree)(*xs)
-    if isinstance(tree, (list, tuple)):
-        return list(tree), lambda xs: type(tree)(xs)
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        names = [f.name for f in dataclasses.fields(tree)]
-        return ([getattr(tree, n) for n in names],
-                lambda xs: dataclasses.replace(tree, **dict(zip(names, xs))))
-    return None
-
-
-def tree_flatten(tree) -> Tuple[list, str]:
-    """The leaves of ``tree`` in jax's order, and a description of its
-    structure (the manifest's ``treedef``)."""
-    leaves: list = []
-
-    def walk(node) -> str:
-        kids = _children(node)
-        if kids is None:
-            leaves.append(node)
-            return "*"
-        if node is None:
-            return "None"
-        parts = [walk(c) for c in kids[0]]
-        if isinstance(node, Mapping):
-            parts = [f"{k!r}: {p}" for k, p in zip(sorted(node), parts)]
-            return "{" + ", ".join(parts) + "}"
-        if isinstance(node, list):
-            return "[" + ", ".join(parts) + "]"
-        if isinstance(node, tuple) and not hasattr(node, "_fields"):
-            return "(" + ", ".join(parts) + ")"
-        return f"{type(node).__name__}(" + ", ".join(parts) + ")"
-
-    desc = walk(tree)
-    return leaves, f"PyTreeDef({desc})"
-
-
-def tree_unflatten(tree, leaves) -> Any:
-    """A tree of ``tree``'s structure holding ``leaves`` (in jax's order)."""
-    it = iter(leaves)
-
-    def build(node):
-        kids = _children(node)
-        if kids is None:
-            return next(it)
-        children, rebuild = kids
-        return rebuild([build(c) for c in children])
-
-    out = build(tree)
-    if next(it, None) is not None:
-        raise ValueError("more leaves than the tree has")
-    return out
-
-
 def _host(leaf) -> np.ndarray:
+    """A leaf as the numpy array the JAX manager writes for it. numpy has
+    no bfloat16: the JAX manager's ``ml_dtypes.bfloat16`` array is saved
+    as 2-byte voids, so a bf16 tensor is written as its bits viewed as
+    ``|V2`` (the same bytes, so the same sha256)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy().copy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view("V2").copy()
+        return leaf.numpy().copy()
     return np.array(leaf)
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A restored array as a CPU tensor. In the trees of both packages a
+    2-byte void leaf can only be bf16 (float16 saves as ``<f2``, the
+    float8 types are 1 byte): it becomes a bfloat16 tensor of the same
+    bits. Any other void width is refused."""
+    if arr.dtype.kind == "V":
+        if arr.dtype.itemsize != 2:
+            raise TypeError(f"checkpoint leaf of dtype {arr.dtype.str} ({arr.dtype.itemsize}-byte "
+                            "void) has no torch dtype; only 2-byte voids (bfloat16) restore")
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 @dataclasses.dataclass
@@ -198,7 +160,7 @@ class CheckpointManager:
                 raise IOError(
                     f"checkpoint {path} leaf {i} hash mismatch — corrupt file"
                 )
-            leaf = torch.from_numpy(arr)
+            leaf = _tensor(arr)
             leaves.append(leaf if device is None else leaf.to(device))
         return leaves, manifest
 

@@ -1,6 +1,7 @@
 """The language models of the port (mirror of ``repro.models``): one
-parameterized stack for the ten LM configs, its forward and loss value, and
-the greedy KV-cache decode step that ``launch/serve.py`` drives."""
+parameterized stack for the ten LM configs, its forward and loss (with its
+gradient, for ``launch/steps.py``), and the greedy KV-cache decode step
+that ``launch/serve.py`` drives."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import (
     LanguageModel,

@@ -1,11 +1,16 @@
-"""GQA attention: chunked online-softmax prefill + KV-cache decode (mirror of
-``repro.models.attention``, forward only).
+"""GQA attention: chunked online-softmax prefill and training + KV-cache
+decode (mirror of ``repro.models.attention``).
 
 The full (S, S) score matrix is never materialized: the kv axis is walked in
 ``chunk``-sized blocks with running (max, sum, acc) online-softmax state.
 Operands keep their dtype, the contractions accumulate in float32 (the JAX
 package's ``preferred_element_type``): bf16 operands are widened, which is
 exact, and the products taken in float32.
+
+``chunked_attention`` is a ``torch.autograd.Function`` with the flash
+backward of the JAX package's ``custom_vjp``: it saves only (q, k, v, out,
+m, l) and recomputes each block's probabilities in the backward, where
+plain autograd would keep every block's (B, H, Sq, chunk) float32 tiles.
 """
 from __future__ import annotations
 
@@ -39,15 +44,30 @@ def chunked_attention(
     chunk: int = 512,
     q_offset: int = 0,           # absolute position of q[0] (for causal mask)
 ) -> torch.Tensor:
-    """Online-softmax attention over kv blocks. O(Sq * chunk) memory."""
-    out, _, _ = _chunked_attention_fwd_impl(q, k, v, causal, chunk, q_offset)
-    return out
+    """Online-softmax attention over kv blocks. O(Sq * chunk) memory, in the
+    forward and in the backward."""
+    return _ChunkedAttention.apply(q, k, v, causal, chunk, q_offset)
+
+
+def _blocks(Skv: int, chunk: int):
+    """(start, length) of each kv block. The last block is cut short where
+    the JAX package pads it with zeros and masks the pad: a masked score
+    adds exp(-1e30 - m) = 0 either way, in the forward and the backward."""
+    return [(start, min(chunk, Skv - start)) for start in range(0, Skv, chunk)]
+
+
+def _block_scores(qf, kc, start, q_pos, causal):
+    """The block's (B,H,Sq,c) float32 scores of the scaled q, masked."""
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kc.float())
+    if causal:
+        kv_pos = start + torch.arange(kc.shape[1], device=qf.device)
+        s = torch.where(kv_pos[None, :] <= q_pos[:, None], s, NEG_INF)
+    return s
 
 
 def _chunked_attention_fwd_impl(q, k, v, causal, chunk, q_offset):
     """Returns (out (B,Sq,H,hd), m (B,H,Sq), l (B,H,Sq))."""
     B, Sq, H, hd = q.shape
-    Skv = k.shape[1]
     dev = q.device
     qf = _scaled(q, hd ** -0.5).float()
     q_pos = q_offset + torch.arange(Sq, device=dev)
@@ -55,16 +75,9 @@ def _chunked_attention_fwd_impl(q, k, v, causal, chunk, q_offset):
     m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=dev)
-    # The last block is cut short where the JAX package pads it with zeros
-    # and masks the pad: masked scores add exp(-1e30 - m) = 0 either way.
-    for start in range(0, Skv, chunk):
-        kc = k[:, start:start + chunk]
-        vc = v[:, start:start + chunk]
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, kc.float())   # (B,H,Sq,c) f32
-        if causal:
-            kv_pos = start + torch.arange(kc.shape[1], device=dev)
-            mask = kv_pos[None, :] <= q_pos[:, None]
-            s = torch.where(mask, s, NEG_INF)
+    for start, n in _blocks(k.shape[1], chunk):
+        kc, vc = k[:, start:start + n], v[:, start:start + n]
+        s = _block_scores(qf, kc, start, q_pos, causal)    # (B,H,Sq,c) f32
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -76,6 +89,55 @@ def _chunked_attention_fwd_impl(q, k, v, causal, chunk, q_offset):
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     out = out.to(k.dtype)
     return out.transpose(1, 2), m, l  # out (B, Sq, H, hd)
+
+
+def _chunked_attention_bwd(q, k, v, out, m, l, dout, causal, chunk, q_offset):
+    """The flash backward of ``repro.models.attention._chunked_attention_bwd``:
+    each block's normalized probabilities recomputed from the saved (m, l),
+    per-block transients only. dq accumulates in float32 and is scaled once
+    at the end; dk and dv are cast to the operands' dtype a block at a
+    time. Returns (dq, dk, dv)."""
+    B, Sq, H, hd = q.shape
+    scale = hd ** -0.5
+    qs = _scaled(q, scale)
+    qf = qs.float()
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    l_safe = torch.clamp(l, min=1e-30)
+
+    # delta_i = rowsum(dout * out) (B,H,Sq): the softmax backward's diagonal.
+    dout_t = dout.transpose(1, 2)                         # (B,H,Sq,hd)
+    delta = torch.einsum("bhqd,bhqd->bhq", dout_t.float(), out.transpose(1, 2).float())
+    do16 = dout_t.to(v.dtype).float()
+
+    dq = torch.zeros((B, Sq, H, hd), dtype=torch.float32, device=q.device)
+    dk, dv = [], []
+    for start, n in _blocks(k.shape[1], chunk):
+        kc, vc = k[:, start:start + n], v[:, start:start + n]
+        s = _block_scores(qf, kc, start, q_pos, causal)
+        p = torch.exp(s - m[..., None]) / l_safe[..., None]          # normalized
+        dv.append(torch.einsum("bhqk,bhqd->bkhd", p.to(v.dtype).float(), do16)
+                  .to(v.dtype))
+        dp = torch.einsum("bhqd,bkhd->bhqk", do16, vc.float())
+        ds16 = (p * (dp - delta[..., None])).to(q.dtype).float()     # f32 tile, cast
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds16, kc.float())
+        dk.append(torch.einsum("bhqk,bqhd->bkhd", ds16, qf).to(k.dtype))
+    dq = (dq * scale).to(q.dtype)
+    return dq, torch.cat(dk, dim=1), torch.cat(dv, dim=1)
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, chunk, q_offset):
+        out, m, l = _chunked_attention_fwd_impl(q, k, v, causal, chunk, q_offset)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.args = (causal, chunk, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l = ctx.saved_tensors
+        dq, dk, dv = _chunked_attention_bwd(q, k, v, out, m, l, dout, *ctx.args)
+        return dq, dk, dv, None, None, None
 
 
 def _qkv(p: dict, x: torch.Tensor, cfg):

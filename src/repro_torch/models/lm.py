@@ -1,5 +1,5 @@
 """Unified language model covering the assigned architecture pool (mirror of
-``repro.models.lm``: forward, loss value and greedy decode).
+``repro.models.lm``: forward, loss and its gradient, greedy decode).
 
 One parameterized decoder/encoder stack supporting:
   * dense GQA transformers (qwen, smollm, granite, phi4, llava backbone)
@@ -12,7 +12,11 @@ The parameter tree is the JAX package's: layers stacked per pattern position
 on a leading unit axis U (``units/pos{j}/mixer|ffn|norm1|norm2``), weights
 with explicit head axes (wq (U, D, H, hd)) and split mamba weights, so a JAX
 tree crosses by ``spec.params_from_numpy``. Where the JAX package scans over
-U, the port loops over it and indexes the stacked tensors. Eager: no
+U, the port loops over it, each stacked tensor unbound once (views; the
+backward stacks the U gradients in one copy). With ``cfg.remat`` and
+gradients on, each unit runs under ``torch.utils.checkpoint``
+(non-reentrant): its activations are recomputed in the backward, the
+port's counterpart of ``jax.checkpoint`` around the scan body. Eager: no
 compilation, no CUDA graphs.
 """
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import attention_decode, attention_forward
 from repro_torch.models.config import ModelConfig
@@ -153,12 +158,15 @@ def _mamba_p(p):
     return out
 
 
-def _unit(tree, i: int):
-    """Unit ``i`` of a tree of U-stacked tensors (views, so writes land in
-    the stack)."""
+def _unbind_units(tree, n: int) -> list:
+    """The ``n`` units of a tree of U-stacked tensors, each leaf unbound
+    once: views, so writes land in the stack, and one stack of the U
+    gradients in the backward (indexing unit by unit would add U
+    full-size gradients)."""
     if isinstance(tree, dict):
-        return {k: _unit(v, i) for k, v in tree.items()}
-    return tree[i]
+        parts = {k: _unbind_units(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _ffn(cfg: ModelConfig, kind: str, p, h):
@@ -224,15 +232,19 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     x = x.to(torch_dtype(cfg.activation_dtype))
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_units):
-        x, a = _unit_forward(cfg, x, _unit(params["units"], i), positions)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for up in _unbind_units(params["units"], cfg.n_units):
+        if remat:
+            x, a = checkpoint(_unit_forward, cfg, x, up, positions, use_reentrant=False)
+        else:
+            x, a = _unit_forward(cfg, x, up, positions)
         aux = aux + a
     return _logits(cfg, params, x), aux
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
     """(loss, {'ce', 'aux'}): mean cross-entropy over the text positions plus
-    the weighted router aux loss (its value; no gradient is claimed)."""
+    the weighted router aux loss; its gradient holds both terms."""
     logits, aux = forward(cfg, params, batch)
     if cfg.frontend == "vision_stub":
         logits = logits[:, batch["patch_embeds"].shape[1]:, :]
@@ -291,9 +303,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor, pos: int)
     the vocab tail past ``cfg.vocab`` never wins the argmax (first index on
     ties)."""
     h = embed_tokens(params["embed"], tokens[:, None]).to(torch_dtype(cfg.activation_dtype))
-    for i in range(cfg.n_units):
-        up = _unit(params["units"], i)
-        uc = _unit(cache, i)
+    for up, uc in zip(_unbind_units(params["units"], cfg.n_units),
+                      _unbind_units(cache, cfg.n_units)):
         for j, (mixer, ffn) in enumerate(cfg.pattern):
             pj, cj = up[f"pos{j}"], uc[f"pos{j}"]
             hin = rms_norm(h, pj["norm1"])
@@ -349,7 +360,8 @@ class _Tree(nn.Module):
 class LanguageModel(nn.Module):
     """The parameter tree as an ``nn.Module`` (``.to``, ``state_dict``,
     ``parameters``) over the functions of this module. Its parameters do
-    not require gradients: this port serves, and claims no training."""
+    not require gradients: training goes through the functions on a plain
+    tree (``launch/steps.py::make_train_step``)."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
         super().__init__()

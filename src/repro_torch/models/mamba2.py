@@ -1,5 +1,6 @@
 """Mamba-2 (SSD — state-space duality, arXiv:2405.21060), chunked form
-(mirror of ``repro.models.mamba2``, forward and decode).
+(mirror of ``repro.models.mamba2``, forward and decode; plain autograd
+differentiates the forward, finite through ``_segsum``'s -inf mask).
 
 The SSD recurrence per head (state N, head dim P):
     h_t = a_t * h_{t-1} + b_t^T (dt_t * x_t)      h in R^{N x P}

@@ -1,11 +1,17 @@
 """Top-k mixture-of-experts with per-group capacity dispatch (mirror of
-``repro.models.moe``, forward only).
+``repro.models.moe``).
 
 Dispatch is per GROUP = batch row: each row's S*k assignments are ranked
 within their expert by a stable sort on the expert id; the first
 ``capacity`` of each expert keep a slot, the rest go to a trash slot at
 ``capacity`` and are dropped (GShard semantics). The combine weights each
 slot in expert space and scatter-adds it back to its token.
+
+The dispatch is a ``torch.autograd.Function`` with the backward of the JAX
+package's ``custom_vjp``: each slot's gradient is scatter-added straight to
+its token, where autograd through ``x[:, tok]`` would build the (B, S*k, D)
+gradient of the gather first. The router and the aux loss keep their
+natural gradients (the top-k ids carry none, the probabilities do).
 """
 from __future__ import annotations
 
@@ -63,6 +69,37 @@ def expert_slots(eid: torch.Tensor, n_experts: int, capacity: int):
     return pos, keep, slot
 
 
+class _Dispatch(torch.autograd.Function):
+    """x (B, S, D) -> (B, E*(C+1), D) slots; saves (eid, slot) only."""
+
+    @staticmethod
+    def forward(ctx, x, eid, slot, n_experts, capacity, k):
+        S = x.shape[1]
+        tok = torch.arange(S, device=x.device).repeat_interleave(k)
+        flat_slot = eid * (capacity + 1) + slot
+        xe = torch.zeros(x.shape[0], n_experts * (capacity + 1), x.shape[2], dtype=x.dtype,
+                         device=x.device)
+        xe.scatter_(1, flat_slot[..., None].expand(-1, -1, x.shape[2]), x[:, tok])
+        ctx.save_for_backward(eid, slot)
+        ctx.args = (S, n_experts, capacity, k)
+        return xe
+
+    @staticmethod
+    def backward(ctx, dxe):
+        """Each slot's gradient scatter-added to its token's row; the trash
+        slots (dropped assignments, and slots no assignment filled) go to
+        row S, which is cut off."""
+        eid, slot = ctx.saved_tensors
+        S, E, capacity, k = ctx.args
+        B, _, D = dxe.shape
+        tok = torch.arange(S, device=dxe.device).repeat_interleave(k).expand(B, -1)
+        tok_slot = torch.full((B, E * (capacity + 1)), S, dtype=torch.int64, device=dxe.device)
+        tok_slot.scatter_(1, eid * (capacity + 1) + slot, torch.where(slot < capacity, tok, S))
+        dx = torch.zeros(B, S + 1, D, dtype=dxe.dtype, device=dxe.device)
+        dx.scatter_add_(1, tok_slot[..., None].expand(-1, -1, D), dxe)
+        return dx[:, :S], None, None, None, None, None
+
+
 def moe_ffn(
     p: dict,            # {'router' (D,E), 'w1' (E,D,F), 'w3' (E,D,F), 'w2' (E,F,D)}
     x: torch.Tensor,    # (B, S, D)
@@ -86,8 +123,7 @@ def moe_ffn(
 
     # --- dispatch: each kept assignment's token into its (expert, slot);
     # dropped ones all land in the trash slot, which is cut off. ---
-    xe = torch.zeros(B, E * (capacity + 1), D, dtype=x.dtype, device=dev)
-    xe.scatter_(1, flat_slot[..., None].expand(B, A, D), x[:, tok])
+    xe = _Dispatch.apply(x, eid, slot, E, capacity, k)
     xe = xe.view(B, E, capacity + 1, D)[:, :, :capacity]
 
     # --- expert computation (SwiGLU), batched over (B, E) ---

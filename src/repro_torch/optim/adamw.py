@@ -1,17 +1,32 @@
-"""AdamW on dataclasses of tensors (mirror of ``repro.optim.adamw``).
+"""AdamW on trees of tensors (mirror of ``repro.optim.adamw``).
 
-The parameters are a dataclass whose fields are tensors, such as a
-``GaussianScene``; each field is one leaf. The learning rate is a scalar, a
-schedule ``fn(step)``, or a dataclass of the same type holding one scalar per
-leaf (3D-GS scene training gives each parameter group its own rate). The
-arithmetic is the JAX package's, in float32 throughout.
+The parameters are a tree of tensors: a dataclass whose fields are tensors,
+such as a ``GaussianScene``, or the nested dicts of a language model. The
+learning rate is a scalar, a schedule ``fn(step)``, or a tree of the
+parameters' structure holding one scalar per leaf (3D-GS scene training
+gives each parameter group its own rate). The arithmetic is the JAX
+package's, in its order: the moments in float32, the update in float32 and
+cast to the parameter's dtype (a bf16 parameter's weight-decay product is
+taken in bf16 first, as JAX's weak-typed scalar keeps it).
+
+``adamw_update_`` writes the step into the parameters and the state in
+place, a slice of a leaf at a time, so that a step never holds a second
+copy of the state (the JAX step donates its buffers instead).
+``adamw_update`` runs it on a copy and returns new trees.
 """
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Mapping
 from typing import Any, Callable, NamedTuple, Union
 
 import torch
+
+from repro_torch.utils import tree_copy, tree_flatten, tree_map
+
+# Elements of a leaf updated at once by the in-place form: bounds its float32
+# temporaries to a few times 128 MiB whatever the leaf's size.
+INPLACE_CHUNK = 1 << 25
 
 
 class AdamWState(NamedTuple):
@@ -19,24 +34,44 @@ class AdamWState(NamedTuple):
     nu: Any
 
 
-def _leaves(tree) -> dict:
-    return {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree)}
-
-
-def _map(fn, tree, *rest):
-    """``fn`` over the fields of one or more dataclasses of the same type."""
-    others = [_leaves(r) for r in rest]
-    return type(tree)(**{
-        name: fn(leaf, *(o[name] for o in others)) for name, leaf in _leaves(tree).items()
-    })
-
-
 def adamw_init(params) -> AdamWState:
     zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
-    return AdamWState(mu=_map(zeros, params), nu=_map(zeros, params))
+    return AdamWState(mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
-def adamw_update(
+def _is_tree(lr) -> bool:
+    return isinstance(lr, Mapping) or (dataclasses.is_dataclass(lr) and not isinstance(lr, type))
+
+
+def _prepare(params, step, lr, b1, b2):
+    """(bias corrections c1, c2, the rate tree) on the parameters' device."""
+    if callable(lr):
+        lr = lr(step)
+    dev = tree_flatten(params)[0][0].device
+    # Bias corrections in float32, as jnp.power on a float32 t computes them
+    # (a Python float power would be float64 and drift by ulps).
+    t = torch.as_tensor(step, dtype=torch.float32, device=dev) + 1.0
+    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=dev), t)
+    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=dev), t)
+    as_rate = lambda r: torch.as_tensor(r, dtype=torch.float32, device=dev)
+    if _is_tree(lr):
+        rates = tree_map(lambda p, r: as_rate(r), params, lr)
+    else:
+        rate = as_rate(lr)
+        rates = tree_map(lambda p: rate, params)
+    return c1, c2, rates
+
+
+def _leaf(p, g, m, v, rate, c1, c2, b1, b2, eps, weight_decay):
+    """One leaf's (new p, new m, new v)."""
+    m = b1 * m + (1 - b1) * g.to(torch.float32)
+    v = b2 * v + (1 - b2) * torch.square(g.to(torch.float32))
+    p = (p - rate * ((m / c1) / (torch.sqrt(v / c2) + eps) + weight_decay * p)).to(p.dtype)
+    return p, m, v
+
+
+@torch.no_grad()
+def adamw_update_(
     params,
     grads,
     state: AdamWState,
@@ -47,28 +82,25 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.0,
 ):
-    """One AdamW step; returns (new params, new state). ``step`` counts from
-    0. Call it under ``torch.no_grad()`` when the parameters require grad."""
-    if callable(lr):
-        lr = lr(step)
-    dev = next(iter(_leaves(params).values())).device
-    # Bias corrections in float32, as jnp.power on a float32 t computes them
-    # (a Python float power would be float64 and drift by ulps).
-    t = torch.as_tensor(step, dtype=torch.float32, device=dev) + 1.0
-    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=dev), t)
-    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=dev), t)
+    """One AdamW step in place: the parameters and moments are overwritten,
+    a slice of a leaf at a time (the arithmetic is elementwise, so slicing
+    changes no value). ``step`` counts from 0. Returns (params, state), the
+    same objects."""
+    c1, c2, rates = _prepare(params, step, lr, b1, b2)
 
-    mu = _map(lambda m, g: b1 * m + (1 - b1) * g.to(torch.float32), state.mu, grads)
-    nu = _map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.to(torch.float32)),
-              state.nu, grads)
+    def one(p, g, m, v, rate):
+        flat = [x.view(-1) for x in (p, m, v)] + [g.reshape(-1)]
+        for lo in range(0, p.numel(), INPLACE_CHUNK):
+            pc, mc, vc, gc = (x[lo:lo + INPLACE_CHUNK] for x in flat)
+            new = _leaf(pc, gc, mc, vc, rate, c1, c2, b1, b2, eps, weight_decay)
+            for dst, src in zip((pc, mc, vc), new):
+                dst.copy_(src)
 
-    def step_leaf(p, m, v, rate):
-        return (p - rate * ((m / c1) / (torch.sqrt(v / c2) + eps) + weight_decay * p)).to(p.dtype)
+    tree_map(one, params, grads, state.mu, state.nu, rates)
+    return params, state
 
-    if dataclasses.is_dataclass(lr):
-        rates = _map(lambda r: torch.as_tensor(r, dtype=torch.float32, device=dev), lr)
-        new_params = _map(step_leaf, params, mu, nu, rates)
-    else:
-        rate = torch.as_tensor(lr, dtype=torch.float32, device=dev)
-        new_params = _map(lambda p, m, v: step_leaf(p, m, v, rate), params, mu, nu)
-    return new_params, AdamWState(mu=mu, nu=nu)
+
+def adamw_update(params, grads, state: AdamWState, step, *args, **kw):
+    """One AdamW step; returns (new params, new state) and leaves its inputs
+    as they are (``adamw_update_`` on copies; the same arguments)."""
+    return adamw_update_(tree_copy(params), grads, tree_copy(state), step, *args, **kw)

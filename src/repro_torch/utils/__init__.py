@@ -3,8 +3,12 @@ from repro_torch.utils.misc import (
     pytree_bytes,
     resolve_device,
     round_up,
+    tree_copy,
+    tree_flatten,
     tree_map,
+    tree_unflatten,
     wide_count_sum,
 )
 
-__all__ = ["cdiv", "pytree_bytes", "resolve_device", "round_up", "tree_map", "wide_count_sum"]
+__all__ = ["cdiv", "pytree_bytes", "resolve_device", "round_up", "tree_copy", "tree_flatten",
+           "tree_map", "tree_unflatten", "wide_count_sum"]

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections.abc import Mapping
-from typing import Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -50,21 +50,94 @@ def pytree_bytes(tree) -> int:
     return sum(pytree_bytes(x) for x in items)
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
     """``tree`` with ``fn`` applied to every tensor: a tensor, or a
-    dataclass, mapping, list or tuple of them (nested). Other leaves (a
-    shard count, a name) are kept as they are."""
+    dataclass, mapping, list or tuple (named ones too) of them, nested.
+    Other leaves (a shard count, a name) are kept as they are. With
+    ``rest``, trees of the same structure, ``fn`` takes each tensor of
+    ``tree`` and the values at the same place in the others (a leaf of
+    ``tree`` may face any value there, a learning rate say)."""
     if isinstance(tree, torch.Tensor):
-        return fn(tree)
+        return fn(tree, *rest)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return type(tree)(**{
-            f.name: tree_map(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)
+            f.name: tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)
         })
     if isinstance(tree, Mapping):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, x) for x in tree)
+        out = [tree_map(fn, x, *(r[i] for r in rest)) for i, x in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
     return tree
+
+
+@torch.no_grad()
+def tree_copy(tree):
+    """``tree`` with every tensor copied, contiguous and outside autograd:
+    the functional optimizer forms run their in-place forms on such a copy."""
+    return tree_map(lambda x: x.clone(memory_format=torch.contiguous_format), tree)
+
+
+def _children(tree) -> Optional[Tuple[list, Any]]:
+    """(children in jax's order, a rebuild function), or None for a leaf."""
+    if tree is None:
+        return [], lambda xs: None
+    if isinstance(tree, Mapping):
+        keys = sorted(tree)
+        return [tree[k] for k in keys], lambda xs: type(tree)(zip(keys, xs))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):       # NamedTuple
+        return list(tree), lambda xs: type(tree)(*xs)
+    if isinstance(tree, (list, tuple)):
+        return list(tree), lambda xs: type(tree)(xs)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        names = [f.name for f in dataclasses.fields(tree)]
+        return ([getattr(tree, n) for n in names],
+                lambda xs: dataclasses.replace(tree, **dict(zip(names, xs))))
+    return None
+
+
+def tree_flatten(tree) -> Tuple[list, str]:
+    """The leaves of ``tree`` in jax's order, and a description of its
+    structure (the manifest's ``treedef``)."""
+    leaves: list = []
+
+    def walk(node) -> str:
+        kids = _children(node)
+        if kids is None:
+            leaves.append(node)
+            return "*"
+        if node is None:
+            return "None"
+        parts = [walk(c) for c in kids[0]]
+        if isinstance(node, Mapping):
+            parts = [f"{k!r}: {p}" for k, p in zip(sorted(node), parts)]
+            return "{" + ", ".join(parts) + "}"
+        if isinstance(node, list):
+            return "[" + ", ".join(parts) + "]"
+        if isinstance(node, tuple) and not hasattr(node, "_fields"):
+            return "(" + ", ".join(parts) + ")"
+        return f"{type(node).__name__}(" + ", ".join(parts) + ")"
+
+    desc = walk(tree)
+    return leaves, f"PyTreeDef({desc})"
+
+
+def tree_unflatten(tree, leaves) -> Any:
+    """A tree of ``tree``'s structure holding ``leaves`` (in jax's order)."""
+    it = iter(leaves)
+
+    def build(node):
+        kids = _children(node)
+        if kids is None:
+            return next(it)
+        children, rebuild = kids
+        return rebuild([build(c) for c in children])
+
+    out = build(tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
 
 
 def tree_devices(tree) -> list:

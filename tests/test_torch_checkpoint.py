@@ -4,7 +4,9 @@ manager (bit-exact round trip, async writes, retention, corruption), a
 resume of scene training bitwise equal to training straight through, files
 written by either package restored leaf for leaf and in the same order by
 the other (nested dicts, lists, tuples and a GaussianScene), restore onto a
-named device, and the uncompressed path without ``zstandard``."""
+named device, the uncompressed path without ``zstandard``, and bf16 leaves:
+a bitwise round trip, a JAX-written bf16 file restored by the port, and a
+port-written one that the JAX manager reads back with its own bytes."""
 from __future__ import annotations
 
 import zipfile
@@ -200,3 +202,63 @@ def test_uncompressed_without_zstandard(tmp_path, monkeypatch):
     monkeypatch.setattr(manager_module, "zstandard", None)
     with pytest.raises(ImportError, match="zstandard"):
         mgr.restore(2)
+
+
+# -- bf16 leaves ------------------------------------------------------------------
+
+def _bf16_tree(seed):
+    g = torch.Generator().manual_seed(seed)
+    return {"w": torch.randn(5, 7, generator=g).to(torch.bfloat16),
+            "b": torch.randn(3, generator=g).to(torch.bfloat16),
+            "s": torch.randn((), generator=g).to(torch.bfloat16),
+            "mu": torch.randn(5, 7, generator=g)}
+
+
+def test_bf16_roundtrip_is_bitwise(tmp_path):
+    """A bf16 leaf (0-d too) saves as its bits and restores as bf16, bit for
+    bit, beside a float32 leaf; on a named device too."""
+    mgr = CheckpointManager(str(tmp_path), async_write=False)
+    tree = _bf16_tree(0)
+    mgr.save(4, tree)
+    for device in (None, "cpu"):
+        leaves, _ = mgr.restore(device=device)
+        orig, _ = tree_flatten(tree)
+        for a, b in zip(orig, leaves):
+            assert b.dtype == a.dtype and b.shape == a.shape
+            assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                               b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+
+
+def test_bf16_file_of_the_jax_manager_restores_in_the_port(tmp_path):
+    """The JAX manager writes a bf16 leaf as 2-byte voids; the port restores
+    it as bf16 with the same bits, and refuses a void of another width."""
+    rng = np.random.default_rng(0)
+    w = jnp.asarray(rng.standard_normal((4, 6)), jnp.bfloat16)
+    jtree = {"w": w, "x": jnp.asarray(rng.standard_normal(3), jnp.float32)}
+    JManager(str(tmp_path), async_write=False).save(2, jtree)
+    leaves, _ = CheckpointManager(str(tmp_path), async_write=False).restore()
+    assert leaves[0].dtype == torch.bfloat16 and leaves[1].dtype == torch.float32
+    np.testing.assert_array_equal(leaves[0].view(torch.int16).numpy(),
+                                  np.asarray(w).view(np.int16))
+    np.testing.assert_array_equal(leaves[1].numpy(), np.asarray(jtree["x"]))
+    with pytest.raises(TypeError, match="V4"):
+        manager_module._tensor(np.zeros(3, np.int32).view("V4"))
+
+
+def test_bf16_file_of_the_port_restores_in_the_jax_manager(tmp_path):
+    """The port's bf16 leaf is byte for byte the JAX manager's own: the
+    same 2-byte-void array back from the JAX manager's restore, with the
+    same bytes and sha256 as the JAX package's save of the same values."""
+    tree = _bf16_tree(1)
+    CheckpointManager(str(tmp_path / "port"), async_write=False).save(1, tree)
+    jtree = {k: jnp.asarray(v.float().numpy(), jnp.dtype(str(v.dtype).split(".")[1]))
+             for k, v in tree.items()}
+    JManager(str(tmp_path / "jax"), async_write=False).save(1, jtree)
+    from_port, port_manifest = JManager(str(tmp_path / "port"), async_write=False).restore()
+    own, jax_manifest = JManager(str(tmp_path / "jax"), async_write=False).restore()
+    assert port_manifest["hashes"] == jax_manifest["hashes"]
+    assert port_manifest["treedef"] == jax_manifest["treedef"]
+    for a, b in zip(from_port, own):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+    assert [a.dtype.str for a in from_port] == ["|V2", "<f4", "|V2", "|V2"]  # b, mu, s, w

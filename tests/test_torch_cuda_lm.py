@@ -1,5 +1,5 @@
-"""The port's LM serving path on a card. Every test here is marked ``cuda``
-and skips without one.
+"""The port's LM serving and training paths on a card. Every test here is
+marked ``cuda`` and skips without one.
 
 The module imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -10,7 +10,13 @@ Weights and tokens come from seeded torch generators. Tolerances: float32
 decode against the full forward within 2e-3 (the JAX package's own bound,
 ``tests/test_models_attention.py``); the card's float32 decode logits within
 1e-4 of the host's from the same weights (cuBLAS and the CPU's BLAS sum in
-other orders). TF32 is off for these tests.
+other orders). Training: the flash and MoE-dispatch Functions within 5e-5
+of autograd through their plain versions (the JAX package's own bound for
+its flash VJP); a smoke config's loss within 1e-5 relative of the host's
+and each gradient leaf within 1e-4 of its largest magnitude (other
+summation orders, and CUDA's scatter-adds in no fixed order; the CPU tests
+measure up to 8.7e-6 between the port and JAX). TF32 is off for these
+tests.
 """
 import dataclasses
 
@@ -18,10 +24,14 @@ import pytest
 import torch
 
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.data import TokenStream, make_batch
 from repro_torch.launch.serve import generate
-from repro_torch.models import build_param_spec, forward
+from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.train import device_batch
+from repro_torch.models import attention, build_param_spec, forward, loss_fn, moe
 from repro_torch.models.spec import init_from_spec
-from repro_torch.utils import tree_map
+from repro_torch.optim import adamw_init
+from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
 from torch_parity import cuda_device  # noqa: F401
 
 pytestmark = pytest.mark.cuda
@@ -29,6 +39,9 @@ pytestmark = pytest.mark.cuda
 DECODERS = sorted(a for a in ARCHS if get_config(a).family != "encoder")
 DECODE_VS_FORWARD = 2e-3
 CARD_VS_HOST = 1e-4
+FUNCTION_VS_AUTOGRAD = 5e-5
+LOSS_CARD_VS_HOST = 1e-5
+GRAD_CARD_VS_HOST = 1e-4
 
 
 @pytest.fixture()
@@ -86,3 +99,94 @@ def test_smoke_decode_on_the_card_matches_the_host(arch, cuda_device, no_tf32):
     assert dec_d.device.type == "cuda"
     assert float((dec_d.cpu() - dec_h).abs().max()) <= CARD_VS_HOST
     assert float((dec_d - fwd_d).abs().max()) <= DECODE_VS_FORWARD
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+def naive_attention(q, k, v, causal):
+    s = torch.einsum("bqhd,bkhd->bhqk", q * q.shape[-1] ** -0.5, k)
+    if causal:
+        S = q.shape[1]
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool, device=q.device).triu(1), -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_function_matches_autograd_on_the_card(causal, cuda_device, no_tf32):
+    """Output and dq, dk, dv of the flash Function against autograd through
+    a full-softmax attention: S 200 over chunk 64 (the last block cut)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v, w = (torch.randn(2, 200, 4, 32, generator=gen, device=cuda_device)
+                  for _ in range(4))
+    outs = []
+    for fn in (lambda a, b, c: attention.chunked_attention(a, b, c, causal, 64, 0),
+               lambda a, b, c: naive_attention(a, b, c, causal)):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*xs)
+        outs.append([out.detach(), *torch.autograd.grad((out * w).sum(), xs)])
+    for a, b in zip(*outs):
+        assert float((a - b).abs().max()) <= FUNCTION_VS_AUTOGRAD
+
+
+def test_dispatch_function_matches_autograd_on_the_card(cuda_device):
+    """The MoE dispatch Function's slots and gradient against autograd
+    through the plain gather and scatter, with dropped assignments."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    B, S, D, E, k, cap = 2, 64, 16, 8, 2, 12
+    weights = 1.0 / torch.arange(1, E + 1, dtype=torch.float32, device=cuda_device)
+    eid = torch.multinomial(weights, B * S * k, replacement=True, generator=gen).view(B, S * k)
+    _, keep, slot = moe.expert_slots(eid, E, cap)
+    assert not bool(keep.all())
+    x = torch.randn(B, S, D, generator=gen, device=cuda_device)
+    w = torch.randn(B, E, cap, D, generator=gen, device=cuda_device)
+    tok = torch.arange(S, device=cuda_device).repeat_interleave(k)
+    index = (eid * (cap + 1) + slot)[..., None].expand(-1, -1, D)
+    outs = []
+    for fn in (lambda xx: moe._Dispatch.apply(xx, eid, slot, E, cap, k),
+               lambda xx: torch.zeros(B, E * (cap + 1), D, device=cuda_device)
+               .scatter(1, index, xx[:, tok])):
+        xx = x.clone().requires_grad_(True)
+        xe = fn(xx).view(B, E, cap + 1, D)[:, :, :cap]
+        outs.append((xe.detach(), torch.autograd.grad((xe * w).sum(), xx)[0]))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert float((outs[0][1] - outs[1][1]).abs().max()) <= FUNCTION_VS_AUTOGRAD
+
+
+def smoke_loss_and_grads(cfg, params, batch):
+    leaves = [p.detach().requires_grad_(True) for p in tree_flatten(params)[0]]
+    loss, _ = loss_fn(cfg, tree_unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_smoke_gradients_on_the_card_match_the_host(arch, cuda_device, no_tf32):
+    cfg = get_smoke_config(arch)
+    params_h = init_from_spec(build_param_spec(cfg), torch.Generator().manual_seed(2), "cpu")
+    batch_h = device_batch(make_batch(TokenStream(cfg.vocab, 2, 32, seed=3), 0, cfg.frontend,
+                                      cfg.n_frontend_tokens, cfg.d_model), "cpu")
+    loss_h, grads_h = smoke_loss_and_grads(cfg, params_h, batch_h)
+    loss_d, grads_d = smoke_loss_and_grads(cfg, tree_map(lambda x: x.to(cuda_device), params_h),
+                                           tree_map(lambda x: x.to(cuda_device), batch_h))
+    assert abs(loss_d.item() - loss_h.item()) <= LOSS_CARD_VS_HOST * abs(loss_h.item())
+    for d, h in zip(grads_d, grads_h):
+        assert d.device.type == "cuda"
+        assert float((d.cpu() - h).abs().max()) <= GRAD_CARD_VS_HOST * float(h.abs().max())
+
+
+def test_bf16_train_steps_on_the_card(cuda_device):
+    """granite-3-2b's smoke config in bf16 with remat: five AdamW steps on
+    one batch on the card, finite and falling, the parameters still bf16
+    and on the card."""
+    cfg = dataclasses.replace(get_smoke_config("granite-3-2b"), param_dtype="bfloat16",
+                              activation_dtype="bfloat16", remat=True)
+    params = init_from_spec(build_param_spec(cfg),
+                            torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    step, _ = make_train_step(cfg, lr=1e-3, warmup=0)
+    opt = adamw_init(params)
+    batch = device_batch(make_batch(TokenStream(cfg.vocab, 2, 64, seed=0), 0), cuda_device)
+    losses = [step(params, opt, batch, i)[2]["loss"].item() for i in range(5)]
+    assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
+    assert all(p.dtype == torch.bfloat16 and p.is_cuda for p in tree_flatten(params)[0])

@@ -314,6 +314,11 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.gateway.worker_main, repro_torch.sharding.policies\n"
         "import repro_torch.models, repro_torch.models.spec, repro_torch.launch.serve\n"
         "import repro_torch.examples.serve_lm\n"
+        "import repro_torch.data, repro_torch.data.tokens, repro_torch.data.scenes\n"
+        "import repro_torch.optim.adafactor, repro_torch.optim.compression\n"
+        "import repro_torch.optim.grad_utils, repro_torch.optim.schedule\n"
+        "import repro_torch.launch.steps, repro_torch.launch.train\n"
+        "import repro_torch.examples.train_lm\n"
         "from repro_torch.configs import ARCHS, get_config, get_smoke_config\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
