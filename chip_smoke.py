@@ -261,11 +261,34 @@ line each:
                 (e) The train CLI resuming a step-50 checkpoint on the card,
                 and an in-process resume, against 52 steps straight through
                 (1e-5 relative). None of the four kernels may launch.
-  9. kernels  — every ported kernel: launches on its path, on the sharded
+  9. lm_mesh — the LM steps over a mesh (launch/steps.py, sharding/
+                policies.py), outside inference mode. (a) granite-3-2b at
+                full width and depth in bf16, AdamW, remat, on a (2, 2)
+                mesh of the card listed four times: FSDP and ZeRO-1, batch
+                2 x 4,096 (one sequence a data row). The one-device step
+                from the same parameters and batch, then a control mesh
+                step with data row 1 left out of the loss (rate 0), a
+                warm-up step (rate 0) and two timed mesh steps: step ms,
+                peak memory and the bytes of parameters, gradients and
+                AdamW state each mesh position holds beside one device's.
+                Gates: the first loss within 1e-5 and the gradient norm
+                within 1e-3 (relative) of the one-device step's, the
+                control outside one of the two, losses finite and falling.
+                (b) Every smoke config in float32 over the (2, 2) card
+                mesh, FSDP off and on, and granite-moe-1b-a400m's over a
+                (2, 1) [card, host] mesh, against one device on the card:
+                two train steps (metrics 1e-5, gradient norm 1e-4 relative,
+                parameters 1e-5 of each leaf's max plus the Adam steps'
+                rates times 1e-8 of the gradient norm over the element's
+                own gradient), prefill logits
+                (1e-5), four decode steps (tokens equal, cache 1e-5). None
+                of the four kernels may launch.
+ 10. kernels  — every ported kernel: launches on its path, on the sharded
                 path, in the serve phase's realtime run, over the
                 autotune phase, in the gateway's in-process run, on the
                 mesh phase's (2, 2) mesh (its batch and tile_baseline
-                frame), in the lm and lm_train phases (none), error, times,
+                frame), in the lm, lm_train and lm_mesh phases (none),
+                error, times,
                 bound, library time (torch.sort + gather for the bitonic
                 sort). The train phase launches none of them.
 
@@ -2703,6 +2726,293 @@ def lm_train_phase(dev, on_card, check, smi, time_ms, full: bool = True) -> dict
     return launches
 
 
+# The lm_mesh phase: the LM steps over a (data, model) mesh of the card listed
+# four times (launch/steps.py's mesh half, sharding/policies.py's placement).
+LM_MESH = dict(arch="granite-3-2b", batch=2, seq=4096, data=2, model=2, timed_steps=2)
+# The mesh step's first loss and gradient norm against the one-device step
+# from the same bf16 parameters and batch, relative. Measured on the H100
+# (700 W): 8.45e-8 and 1.58e-5. A control step that leaves data row 1 out of
+# the loss (its CE sum and its mask count: the loss is then row 0's own
+# mean, which at random init is close to the whole batch's) is read against
+# the same one-device step in every run, and must break one of the bounds.
+LM_MESH_LOSS_RTOL = 1e-5
+LM_MESH_GNORM_RTOL = 1e-3
+# Every smoke config in float32 over the card mesh against one device on the
+# card, at the CPU tests' bounds (tests/test_torch_lm_train.py: TOL,
+# GRAD_TOL, PARAM_TOL): metrics atol/rtol 1e-5, the gradient norm rtol 1e-4,
+# the parameters after two steps (below), prefill logits within 1e-5 of the
+# largest, decode tokens equal.
+LM_MESH_TOL = 1e-5
+LM_MESH_GRAD_TOL = 1e-4
+# The parameters, element by element: within LM_MESH_TOL of the leaf's own
+# largest magnitude, plus what Adam makes of rounding. The mesh sums each
+# gradient element's batch terms in another order, which moves it by some
+# noise n; Adam divides each element by its own scale, so the element's
+# steps (sum of the rates, lr) move by about lr * n / |g|: an element whose
+# gradient is small takes a step that rounding moves (a zero-initialized
+# bias, whose own largest magnitude is itself about lr, shows it). The bound
+# takes n = LM_MESH_GRAD_NOISE times the global gradient norm and the
+# smaller |g| / norm of the two steps (one device's). Read on the H100 (700
+# W): the elements that broke a bound of the leaf's own magnitude alone
+# (qwen's bk, jamba's conv_bx and dt_bias) imply n up to 1.2e-9 of the norm.
+LM_MESH_GRAD_NOISE = 1e-8
+LM_MESH_SMOKE_LR = (1e-3, 1, 10)   # rate, warm-up steps, total steps
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The paths of a nested dict's leaves, in tree_flatten's order."""
+    if not isinstance(tree, dict):
+        return [prefix]
+    return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}")]
+
+
+def lm_mesh_smoke(dev, check, cfg, mesh, label: str) -> dict:
+    """``cfg`` (a smoke config) over ``mesh`` against one device ``dev``:
+    two train steps (metrics, then the parameters), the prefill logits and
+    four decode steps (tokens, then the cache)."""
+    import torch
+
+    from repro_torch.data import TokenStream, make_batch
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import build_param_spec, init_cache
+    from repro_torch.models.spec import init_from_spec
+    from repro_torch.optim import adamw_init, linear_warmup_cosine
+    from repro_torch.sharding.policies import gather
+    from repro_torch.utils import tree_flatten
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    params = init_from_spec(build_param_spec(cfg), torch.Generator().manual_seed(0), dev)
+    placed = steps.place_params(cfg, mesh, params)
+    rate, warmup, total = LM_MESH_SMOKE_LR
+    one, _ = steps.make_train_step(cfg, lr=rate, warmup=warmup, total_steps=total)
+    over, _ = steps.make_train_step(cfg, mesh, lr=rate, warmup=warmup, total_steps=total)
+    lr_sum = sum(float(linear_warmup_cosine(rate, warmup, total)(i)) for i in range(2))
+    opt, mopt = adamw_init(params), steps.init_opt_state(placed, "adamw")
+    stream = TokenStream(cfg.vocab, 4, 32, seed=3)
+    metric_gap, norm_gap = 0.0, 0.0
+    grad_ratio = []   # each leaf's least |g| / global norm of one device, element by element
+    for i in range(2):
+        b = device_batch(make_batch(stream, i, cfg.frontend, cfg.n_frontend_tokens, cfg.d_model),
+                         dev)
+        _, grads = lm_grads(cfg, params, b)
+        gnorm = math.sqrt(sum(float(g.double().square().sum()) for g in grads))
+        ratios = [g.abs() / gnorm for g in grads]
+        grad_ratio = [torch.minimum(a, r) for a, r in zip(grad_ratio, ratios)] or ratios
+        del grads, ratios
+        _, _, m1 = one(params, opt, b, i)
+        _, _, mm = over(placed, mopt, b, i)
+        for key in ("loss", "ce", "aux"):
+            a, w = mm[key].item(), m1[key].item()
+            metric_gap = max(metric_gap, abs(a - w) / (LM_MESH_TOL + LM_MESH_TOL * abs(w)))
+        norm_gap = max(norm_gap, abs(mm["grad_norm"].item() - m1["grad_norm"].item())
+                       / abs(m1["grad_norm"].item()))
+    over_bound, own, noise = {}, {}, 0.0   # by leaf name
+    for a, b, r, n in zip(tree_flatten(gather(placed, dev))[0], tree_flatten(params)[0],
+                          grad_ratio, leaf_names(params), strict=True):
+        gap, base = (a - b).abs(), LM_MESH_TOL * float(b.abs().max())
+        bound = base + lr_sum * LM_MESH_GRAD_NOISE / r.clamp(min=1e-30)
+        over_bound[n], own[n] = float((gap / bound).max()), rel(a, b)
+        # the rounding noise of the gradient that this leaf's gaps imply
+        noise = max(noise, float(((gap - base).clamp(min=0) * r).max()) / max(lr_sum, 1e-30))
+    param_gap, worst = max((g, n) for n, g in over_bound.items())
+    with torch.inference_mode():
+        b = device_batch(make_batch(TokenStream(cfg.vocab, 4, 16, seed=2), 0, cfg.frontend,
+                                    cfg.n_frontend_tokens, cfg.d_model), dev)
+        prefill_gap = rel(steps.make_prefill_step(cfg, mesh)(placed, b).gather(dev),
+                          steps.make_prefill_step(cfg)(params, b))
+        tokens_equal, cache_gap = None, None
+        if cfg.family != "encoder":
+            c1, cm = init_cache(cfg, 4, 6, dev), steps.mesh_cache(cfg, mesh, 4, 6)
+            d1, dm = steps.make_decode_step(cfg), steps.make_decode_step(cfg, mesh)
+            t1 = tm = b["tokens"][:, 0]
+            tokens_equal = True
+            for pos in range(4):
+                t1, c1 = d1(params, c1, t1, pos)
+                tm, cm = dm(placed, cm, tm, pos)
+                tokens_equal &= bool(torch.equal(tm.gather(dev), t1))
+            cache_gap = max(float((a.to(dev) - c).abs().max())
+                            for a, c in zip(tree_flatten(gather(cm, dev))[0],
+                                            tree_flatten(c1)[0]))
+    devices = sorted({str(t.device) for m in tree_flatten(placed)[0] for _, _, t in m.distinct()})
+    row = {"phase": "lm_mesh", "check": "smoke", "arch": cfg.name, "mesh": label,
+           "fsdp": cfg.force_fsdp, "shard_devices": devices,
+           "metric_gap_over_tol": metric_gap, "grad_norm_rel_diff": norm_gap,
+           "param_gap_over_bound": param_gap, "param_gap_worst_leaf": worst,
+           "param_gap_over_leaf_max": max(own.values()),
+           "leaves_over_leaf_max_tol": {n: {"gap_over_leaf_max": g, "gap_over_bound": over_bound[n]}
+                                        for n, g in own.items() if g > LM_MESH_TOL},
+           "grad_noise_implied": noise, "grad_noise": LM_MESH_GRAD_NOISE,
+           "prefill_gap_over_max": prefill_gap,
+           "decode_tokens_equal": tokens_equal, "cache_max_abs_diff": cache_gap}
+    emit(row)
+    check(metric_gap <= 1.0 and norm_gap <= LM_MESH_GRAD_TOL and param_gap <= 1.0
+          and prefill_gap <= LM_MESH_TOL and tokens_equal is not False
+          and (cache_gap is None or cache_gap <= LM_MESH_TOL),
+          f"lm_mesh: {cfg.name} over {label} from one device: {row}")
+    return row
+
+
+def lm_mesh_control(steps, step, placed, mopt, data) -> dict:
+    """The control of the phase's loss and norm gates: the mesh ``step`` at
+    step 0 (where the warm-up schedule's rate is 0, so the parameters stay
+    as they are) with every data row but the first left out of the loss:
+    their CE sums and mask counts are zeros and they compute nothing. The
+    optimizer moments it wrote are zeroed after. Returns its metrics."""
+    import torch
+
+    from repro_torch.sharding.policies import map_mesh
+
+    real, calls = steps.loss_parts, []
+
+    def first_row_only(cfg, params, batch, *rest):
+        calls.append(1)
+        if len(calls) == 1:
+            return real(cfg, params, batch, *rest)
+        zero = torch.zeros((), dtype=torch.float32, device=batch["labels"].device)
+        return zero, zero, None
+
+    steps.loss_parts = first_row_only
+    try:
+        _, _, m = step(placed, mopt, data, 0)
+    finally:
+        steps.loss_parts = real
+    map_mesh(lambda mt: [t.zero_() for _, _, t in mt.distinct()], mopt)
+    return {k: v.item() for k, v in m.items()}
+
+
+def lm_mesh_phase(dev, on_card, check, smi, full: bool = True) -> dict:
+    """The LM steps over a mesh (launch/steps.py, sharding/policies.py).
+    (a) granite-3-2b at full width and depth in bf16, AdamW, remat, on a
+    (2, 2) mesh of ``dev`` listed four times: FSDP (use_fsdp's choice: 4.9
+    GiB of weights over a model extent of 2) and ZeRO-1 state, batch 2 x
+    4,096 (one sequence a data row); the one-device step from the same
+    parameters and batch first, then over the mesh the control
+    (:func:`lm_mesh_control`), a warm-up step (rate 0) and two timed steps.
+    Gates: the first loss and gradient norm within LM_MESH_LOSS_RTOL and
+    LM_MESH_GNORM_RTOL of the one-device step's, the control's outside one of
+    them, every loss finite, the last below the first. Prints the step ms, the peak
+    memory and the bytes of parameters, gradients and AdamW state each mesh
+    position holds (what one card of such a mesh would hold) beside one
+    device's. (b) Every smoke config in float32 over the (2, 2) card mesh,
+    FSDP forced on and off, against the one-device steps on the card
+    (:func:`lm_mesh_smoke`), and granite-moe-1b-a400m's over a (2, 1) mesh
+    of [card, host] (replicas on distinct devices: the gradient all-reduce
+    and the ZeRO-1 refresh). ``full=False`` (a rehearsal on the host) runs
+    granite-3-2b's smoke config at seq 64 in (a). Runs outside inference
+    mode. Returns the kernels' launches over the phase (none of them is on
+    this path)."""
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config, get_smoke_config
+    from repro_torch.data import TokenStream, make_batch
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import build_param_spec
+    from repro_torch.models.spec import init_from_spec, spec_bytes
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.policies import position_bytes
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    build.reset_launches()
+
+    # (a) granite-3-2b at full width over a (2, 2) mesh of the card
+    run = dict(LM_MESH)
+    cfg = (get_config if full else get_smoke_config)(run["arch"])
+    seq = run["seq"] if full else 64
+    mesh = make_host_mesh(run["data"], run["model"], devices=[dev] * (run["data"] * run["model"]))
+    fsdp = steps.use_fsdp(cfg, mesh)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = init_from_spec(build_param_spec(cfg), torch.Generator(device=dev).manual_seed(0), dev)
+    data = device_batch(make_batch(TokenStream(cfg.vocab, run["batch"], seq, seed=0), 0,
+                                   cfg.frontend, cfg.n_frontend_tokens, cfg.d_model), dev)
+    placed = steps.place_params(cfg, mesh, params)
+    one_step, _ = steps.make_train_step(cfg, warmup=1)
+    t = time.perf_counter()
+    want = {k: v.item() for k, v in one_step(params, adamw_init(params), data, 0)[2].items()}
+    one_ms = (time.perf_counter() - t) * 1e3
+    del params   # the one-device parameters and state go before the mesh steps
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    step, optname = steps.make_train_step(cfg, mesh, warmup=1)
+    mopt = steps.init_opt_state(placed, optname)
+    control = lm_mesh_control(steps, step, placed, mopt, data)
+    losses, norms, step_ms = [], [], []
+    for i in range(1 + run["timed_steps"]):
+        t = time.perf_counter()
+        _, _, m = step(placed, mopt, data, i)
+        sync()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    p_bytes, s_bytes = position_bytes(placed), position_bytes(mopt)
+    weight = spec_bytes(build_param_spec(cfg))
+    per_position = {f"{r},{c}": {"params": p_bytes[(r, c)], "grads": p_bytes[(r, c)],
+                                 "adamw_state": s_bytes[(r, c)]} for r, c in mesh.positions}
+    def rel(got, key):
+        return abs(got - want[key]) / abs(want[key])
+
+    loss_rel, norm_rel = rel(losses[0], "loss"), rel(norms[0], "grad_norm")
+    control_rel = {"loss": rel(control["loss"], "loss"),
+                   "grad_norm": rel(control["grad_norm"], "grad_norm")}
+    wq = placed["units"]["pos0"]["mixer"]["wq"]
+    out = {"phase": "lm_mesh", "check": "train", "arch": cfg.name, "nvidia_smi": smi,
+           "mesh": dict(mesh.shape), "devices": [str(d) for d in mesh.devices],
+           "dtype": cfg.param_dtype, "remat": cfg.remat, "fsdp": fsdp, "zero1": True,
+           "optimizer": optname, "batch": run["batch"], "seq": seq,
+           "wq_spec": list(wq.spec), "losses": losses, "grad_norms": norms,
+           "one_device": {"loss": want["loss"], "grad_norm": want["grad_norm"],
+                          "step_ms": one_ms, "params": weight, "grads": weight,
+                          "adamw_state": 2 * 4 * cfg.param_count()},
+           "loss_rel_diff": loss_rel, "loss_rtol": LM_MESH_LOSS_RTOL,
+           "grad_norm_rel_diff": norm_rel, "grad_norm_rtol": LM_MESH_GNORM_RTOL,
+           "control_row1_left_out": {**control, "rel_diff": control_rel},
+           "warmup_step_ms": step_ms[0], "step_ms_each": step_ms[1:],
+           "step_ms_median": statistics.median(step_ms[1:]),
+           "tok_s": run["batch"] * seq / statistics.median(step_ms[1:]) * 1e3,
+           "peak_mem_gb": peak, "per_position_bytes": per_position,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    check(not full or fsdp, f"lm_mesh: use_fsdp is false for {cfg.name} over {dict(mesh.shape)}")
+    check(loss_rel <= LM_MESH_LOSS_RTOL and norm_rel <= LM_MESH_GNORM_RTOL,
+          f"lm_mesh: the mesh step's first loss {loss_rel} or norm {norm_rel} from one device")
+    check(control_rel["loss"] > LM_MESH_LOSS_RTOL or control_rel["grad_norm"] > LM_MESH_GNORM_RTOL,
+          f"lm_mesh: the control with row 1 left out passes the gates: {control_rel}")
+    check(all(math.isfinite(x) for x in losses + norms) and losses[-1] < losses[0],
+          f"lm_mesh: losses {losses} or norms {norms} not finite and falling")
+    del placed, mopt, data
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) every smoke config in float32 over the card mesh, against one device
+    for arch in sorted(ARCHS):
+        for fsdp in (False, True):
+            cfg = dataclasses.replace(get_smoke_config(arch), force_fsdp=fsdp)
+            lm_mesh_smoke(dev, check, cfg, mesh, "2x2 card")
+    mixed = make_host_mesh(2, 1, devices=[dev, "cpu"])
+    lm_mesh_smoke(dev, check, get_smoke_config("granite-moe-1b-a400m"), mixed,
+                  f"2x1 [{dev}, cpu]")
+
+    launches = dict(build.LAUNCHES)
+    emit({"phase": "lm_mesh", "check": "phase", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t_phase, "launches": launches})
+    check(not any(launches.values()),
+          f"lm_mesh: a GS-TG kernel launched on the LM mesh path: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3378,7 +3688,12 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     with torch.inference_mode(False):
         lm_train_launches = lm_train_phase(dev, on_card, check, smi, time_ms)
 
-    # -- 9. every ported kernel --------------------------------------------------
+    # -- 9. the LM steps over a mesh of the card (no GS-TG kernel on it),
+    # outside inference mode ---------------------------------------------------
+    with torch.inference_mode(False):
+        lm_mesh_launches = lm_mesh_phase(dev, on_card, check, smi)
+
+    # -- 10. every ported kernel -------------------------------------------------
     replaces = {
         "bitmask_gen": ("src/repro/kernels/bitmask_gen.py:74", "gstg"),
         "raster_group_fused": ("src/repro/kernels/raster_tile.py:229", "gstg"),
@@ -3406,6 +3721,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
             "launches_mesh": mesh_launches[name],
             "launches_lm": lm_launches[name],
             "launches_lm_train": lm_train_launches[name],
+            "launches_lm_mesh": lm_mesh_launches[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": k.get("library_ms"),

@@ -71,6 +71,11 @@ class RenderMesh:
     def columns(self) -> int:
         return len(self.grid[0])
 
+    @property
+    def positions(self) -> Tuple[Tuple[int, int], ...]:
+        """Every (row, column), row-major."""
+        return tuple((r, c) for r in range(self.rows) for c in range(self.columns))
+
     def lead(self, row: int = 0) -> torch.device:
         """Data row ``row``'s lead device (model column 0): where its lanes'
         merge and backend run."""

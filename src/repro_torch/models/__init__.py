@@ -11,6 +11,7 @@ from repro_torch.models.lm import (
     forward,
     init_cache,
     loss_fn,
+    loss_parts,
 )
 
 __all__ = [
@@ -22,4 +23,5 @@ __all__ = [
     "forward",
     "init_cache",
     "loss_fn",
+    "loss_parts",
 ]

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import apply_rope, rope_angles
+from repro_torch.models.layers import apply_rope, no_constrain, rope_angles
 
 NEG_INF = -1e30
 
@@ -159,6 +159,7 @@ def attention_forward(
     cfg,
     positions: torch.Tensor,    # (S,) absolute positions
     causal: bool,
+    constrain=no_constrain,     # fn(tensor, logical_axes) -> tensor
 ) -> torch.Tensor:
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -166,9 +167,13 @@ def attention_forward(
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    q = constrain(q, ("batch", None, "heads", "head_dim"))
+    k = constrain(k, ("batch", None, "kv_heads", "head_dim"))
+    v = constrain(v, ("batch", None, "kv_heads", "head_dim"))
     k = _repeat_kv(k, H // KV)
     v = _repeat_kv(v, H // KV)
     out = chunked_attention(q, k, v, causal, cfg.attn_chunk, 0)
+    out = constrain(out, ("batch", None, "heads", "head_dim"))
     out = out.reshape(B, S, H * hd).to(x.dtype)
     return out @ p["wo"]
 
@@ -180,6 +185,7 @@ def attention_decode(
     cache_v: torch.Tensor,
     pos: int,                   # current position
     cfg,
+    constrain=no_constrain,
 ):
     """One decode step against the KV cache, which it updates in place at
     ``pos``. Returns (out (B,1,D), cache_k, cache_v)."""
@@ -195,6 +201,8 @@ def attention_decode(
 
     cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
     cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    cache_k = constrain(cache_k, ("cache_batch", "cache_seq", "kv_heads", "head_dim"))
+    cache_v = constrain(cache_v, ("cache_batch", "cache_seq", "kv_heads", "head_dim"))
 
     # Grouped-query attention over the whole cache in float32: query head
     # g*(H//KV) + r reads kv head g (the order of _repeat_kv).

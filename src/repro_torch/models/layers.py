@@ -5,6 +5,13 @@ from __future__ import annotations
 import torch
 
 
+def no_constrain(x, axes):
+    """The identity sharding hook (``constrain(x, logical_axes)``) that the
+    model's functions take by default: one device, or a mesh whose hook
+    (``sharding/policies.py::make_constrain``) the caller passes."""
+    return x
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6):
     """RMSNorm: the statistics in float32, the normalize multiply in the
     activation dtype (as the JAX package casts them)."""
@@ -49,6 +56,14 @@ def softmax_xent(
     vocab: int,               # logical (unpadded) vocab size
 ):
     """Stable mean cross-entropy; padded vocab tail masked out."""
+    nll, count = softmax_xent_parts(logits, labels, mask, vocab)
+    return nll / torch.clamp(count, min=1.0)
+
+
+def softmax_xent_parts(logits, labels, mask, vocab: int):
+    """(the masked sum of the cross-entropy, the mask's sum): the numerator
+    and denominator of :func:`softmax_xent`, which a batch split over data
+    rows adds up row by row before it divides."""
     logits = logits.float()
     V = logits.shape[-1]
     if V > vocab:
@@ -57,4 +72,4 @@ def softmax_xent(
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = (lse - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.sum(), mask.sum()

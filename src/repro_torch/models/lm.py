@@ -18,6 +18,13 @@ gradients on, each unit runs under ``torch.utils.checkpoint``
 (non-reentrant): its activations are recomputed in the backward, the
 port's counterpart of ``jax.checkpoint`` around the scan body. Eager: no
 compilation, no CUDA graphs.
+
+``constrain`` (``fn(tensor, logical_axes)``) is called at the JAX
+package's sharding-constraint sites and ``unit_constrain`` (``fn(unit
+params)``) on each unit's weights inside the unit loop, under remat too, as
+JAX applies it inside the scan body; both default to nothing. Over a mesh
+(``launch/steps.py``) the units are ``MeshTensor`` stacks, and
+``unit_constrain`` gathers one unit's shards onto the data row's device.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import attention_decode, attention_forward
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import embed_tokens, rms_norm, softmax_xent
+from repro_torch.models.layers import embed_tokens, no_constrain, rms_norm, softmax_xent_parts
 from repro_torch.models.mamba2 import mamba_decode, mamba_forward
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.spec import LeafSpec, map_spec, torch_dtype
@@ -124,14 +131,14 @@ def build_param_spec(cfg: ModelConfig) -> Dict[str, Any]:
 # forward
 # --------------------------------------------------------------------------
 
-def _mlp(p, x, act: str):
-    h1 = x @ p["w1"]
+def _mlp(p, x, act: str, constrain=no_constrain):
+    h1 = constrain(x @ p["w1"], ("batch", None, "ffn"))
     if act == "gelu":
         # jax.nn.gelu defaults to the tanh approximation; torch to erf.
         h = torch.nn.functional.gelu(h1.float(), approximate="tanh").to(x.dtype)
     else:
         silu = h1 * torch.sigmoid(h1.float()).to(x.dtype)
-        h = silu * (x @ p["w3"])
+        h = silu * constrain(x @ p["w3"], ("batch", None, "ffn"))
     return h @ p["w2"]
 
 
@@ -162,37 +169,42 @@ def _unbind_units(tree, n: int) -> list:
     """The ``n`` units of a tree of U-stacked tensors, each leaf unbound
     once: views, so writes land in the stack, and one stack of the U
     gradients in the backward (indexing unit by unit would add U
-    full-size gradients)."""
+    full-size gradients). A ``MeshTensor`` leaf unbinds each of its pieces
+    once."""
     if isinstance(tree, dict):
         parts = {k: _unbind_units(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
-    return list(torch.unbind(tree, 0))
+    return list(tree.unbind(0))
 
 
-def _ffn(cfg: ModelConfig, kind: str, p, h):
+def _ffn(cfg: ModelConfig, kind: str, p, h, constrain=no_constrain):
     """(output, aux loss) of a dense or MoE FFN."""
     if kind == "dense":
         act = "gelu" if cfg.family == "encoder" else "swiglu"
-        return _mlp(p, h, act), None
-    return moe_ffn(p, h, cfg)
+        return _mlp(p, h, act, constrain), None
+    return moe_ffn(p, h, cfg, constrain)
 
 
-def _unit_forward(cfg: ModelConfig, x, unit_params, positions):
+def _unit_forward(cfg: ModelConfig, x, unit_params, positions, constrain=no_constrain,
+                  unit_constrain=None):
+    if unit_constrain is not None:
+        unit_params = unit_constrain(unit_params)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, (mixer, ffn) in enumerate(cfg.pattern):
         pj = unit_params[f"pos{j}"]
         h = rms_norm(x, pj["norm1"])
         if mixer == "attn":
             y = attention_forward(_flat_attn(pj["mixer"]), h, cfg, positions,
-                                  causal=cfg.causal)
+                                  causal=cfg.causal, constrain=constrain)
         else:
-            y = mamba_forward(_mamba_p(pj["mixer"]), h, cfg)
+            y = mamba_forward(_mamba_p(pj["mixer"]), h, cfg, constrain)
         x = x + y
         if ffn != "none":
-            y2, a = _ffn(cfg, ffn, pj["ffn"], rms_norm(x, pj["norm2"]))
+            y2, a = _ffn(cfg, ffn, pj["ffn"], rms_norm(x, pj["norm2"]), constrain)
             if a is not None:
                 aux = aux + a
             x = x + y2
+        x = constrain(x, ("batch", "act_seq", None))
     return x, aux
 
 
@@ -225,34 +237,52 @@ def _logits(cfg: ModelConfig, params, x):
     return x @ head
 
 
-def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
+def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+            constrain=no_constrain, unit_constrain=None):
     """Full-sequence forward. Returns (logits (B,S,V), aux_loss ()). The
-    padded vocab tail is not masked here."""
+    padded vocab tail is not masked here. ``unit_constrain`` runs on each
+    unit's weights inside the unit loop (inside the remat boundary, so a
+    gather it makes is recomputed in the backward, not held).
+    ``params["units"]`` may also be the list of its units, already unbound
+    (forwards that share one unbinding also share its gradient's stack), as
+    in :func:`decode_step`."""
     x, _ = _embed_inputs(cfg, params, batch)
     x = x.to(torch_dtype(cfg.activation_dtype))
+    x = constrain(x, ("batch", "act_seq", None))
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for up in _unbind_units(params["units"], cfg.n_units):
+    units = params["units"]
+    for up in units if isinstance(units, list) else _unbind_units(units, cfg.n_units):
         if remat:
-            x, a = checkpoint(_unit_forward, cfg, x, up, positions, use_reentrant=False)
+            x, a = checkpoint(_unit_forward, cfg, x, up, positions, constrain, unit_constrain,
+                              use_reentrant=False)
         else:
-            x, a = _unit_forward(cfg, x, up, positions)
+            x, a = _unit_forward(cfg, x, up, positions, constrain, unit_constrain)
         aux = aux + a
-    return _logits(cfg, params, x), aux
+    logits = constrain(_logits(cfg, params, x), ("batch", None, "vocab"))
+    return logits, aux
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
-    """(loss, {'ce', 'aux'}): mean cross-entropy over the text positions plus
-    the weighted router aux loss; its gradient holds both terms."""
-    logits, aux = forward(cfg, params, batch)
+def loss_parts(cfg: ModelConfig, params, batch, constrain=no_constrain, unit_constrain=None):
+    """(the masked cross-entropy sum, the mask's sum, the aux loss) of a
+    batch: what a batch split over data rows adds up row by row."""
+    logits, aux = forward(cfg, params, batch, constrain, unit_constrain)
     if cfg.frontend == "vision_stub":
         logits = logits[:, batch["patch_embeds"].shape[1]:, :]
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
-    ce = softmax_xent(logits, labels, mask, cfg.vocab)
+    nll, count = softmax_xent_parts(logits, labels, mask, cfg.vocab)
+    return nll, count, aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch, constrain=no_constrain, unit_constrain=None):
+    """(loss, {'ce', 'aux'}): mean cross-entropy over the text positions plus
+    the weighted router aux loss; its gradient holds both terms."""
+    nll, count, aux = loss_parts(cfg, params, batch, constrain, unit_constrain)
+    ce = nll / torch.clamp(count, min=1.0)
     return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
 
@@ -297,27 +327,31 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
     )
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor, pos: int):
+def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor, pos: int,
+                constrain=no_constrain, unit_constrain=None):
     """One greedy decode step at position ``pos``: writes that position into
     ``cache`` in place. Returns (next_tokens (B,), logits (B, V), cache);
     the vocab tail past ``cfg.vocab`` never wins the argmax (first index on
     ties)."""
     h = embed_tokens(params["embed"], tokens[:, None]).to(torch_dtype(cfg.activation_dtype))
-    for up, uc in zip(_unbind_units(params["units"], cfg.n_units),
+    units = params["units"]
+    for up, uc in zip(units if isinstance(units, list) else _unbind_units(units, cfg.n_units),
                       _unbind_units(cache, cfg.n_units)):
+        if unit_constrain is not None:
+            up = unit_constrain(up)
         for j, (mixer, ffn) in enumerate(cfg.pattern):
             pj, cj = up[f"pos{j}"], uc[f"pos{j}"]
             hin = rms_norm(h, pj["norm1"])
             if mixer == "attn":
                 y, _, _ = attention_decode(_flat_attn(pj["mixer"]), hin, cj["k"], cj["v"],
-                                           pos, cfg)
+                                           pos, cfg, constrain)
             else:
                 y = _mamba_decode_into(_mamba_p(pj["mixer"]), hin, cj, cfg)
             h = h + y
             if ffn != "none":
-                y2, _ = _ffn(cfg, ffn, pj["ffn"], rms_norm(h, pj["norm2"]))
+                y2, _ = _ffn(cfg, ffn, pj["ffn"], rms_norm(h, pj["norm2"]), constrain)
                 h = h + y2
-    logits = _logits(cfg, params, h)[:, 0, :]
+    logits = constrain(_logits(cfg, params, h)[:, 0, :], ("batch", "vocab"))
     in_vocab = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab
     next_tokens = torch.argmax(torch.where(in_vocab, logits, -torch.inf), dim=-1)
     return next_tokens.to(torch.int32), logits, cache

@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import no_constrain
+
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: log(1 + e^x) as logaddexp(x, 0), with no
@@ -115,6 +117,7 @@ def mamba_forward(
     p: dict,
     x: torch.Tensor,     # (B, S, D)
     cfg,
+    constrain=no_constrain,
 ) -> torch.Tensor:
     """Full Mamba-2 mixer block (in_proj -> conv -> SSD -> gate -> out_proj)."""
     B, S, D = x.shape
@@ -131,6 +134,7 @@ def mamba_forward(
     log_a = dt * a[None, None, :]
 
     xh = xin.reshape(B, S, H, P)
+    xh = constrain(xh, ("batch", None, "ssm_heads", None))
     xdt = xh * dt[..., None].to(x.dtype)
     y = ssd_chunked(xdt, log_a, b, c, cfg.ssm_chunk)
     y = y + (xh * p["D"].to(x.dtype)[None, None, :, None]).float()

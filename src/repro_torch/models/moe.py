@@ -12,12 +12,29 @@ package's ``custom_vjp``: each slot's gradient is scatter-added straight to
 its token, where autograd through ``x[:, tok]`` would build the (B, S*k, D)
 gradient of the gather first. The router and the aux loss keep their
 natural gradients (the top-k ids carry none, the probabilities do).
+
+The aux loss is a product of batch means. A batch split over data rows
+(``launch/steps.py``'s mesh step) runs its rows' forwards inside
+:func:`record_router_stats`, which keeps each layer's expert counts and mean
+router probabilities, and builds the whole batch's loss from them with
+:func:`global_load_balance_loss`.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import contextvars
+from typing import List, Optional, Tuple
 
 import torch
+
+from repro_torch.models.layers import no_constrain
+
+
+# The list :func:`load_balance_loss` appends its (counts, mean probabilities,
+# tokens) to, inside record_router_stats; None elsewhere (a remat recompute
+# in the backward runs outside it and records nothing).
+_ROUTER_STATS: contextvars.ContextVar[Optional[list]] = contextvars.ContextVar(
+    "router_stats", default=None)
 
 
 def router_topk(
@@ -43,8 +60,40 @@ def load_balance_loss(logits: torch.Tensor, ids: torch.Tensor, n_experts: int):
     counts = torch.zeros(n_experts, dtype=torch.float32, device=logits.device)
     counts.index_add_(0, flat, torch.ones(flat.shape, dtype=torch.float32,
                                           device=logits.device))
+    sink = _ROUTER_STATS.get()
+    if sink is not None:
+        sink.append((counts, p_mean, probs.numel() // n_experts))
     f = counts / torch.clamp(counts.sum(), min=1.0)
     return n_experts * (f * p_mean).sum()
+
+
+@contextlib.contextmanager
+def record_router_stats():
+    """Within the block every :func:`load_balance_loss` also appends its
+    layer's (expert counts, mean router probabilities, tokens) to the list
+    this yields, in call order."""
+    sink: list = []
+    token = _ROUTER_STATS.set(sink)
+    try:
+        yield sink
+    finally:
+        _ROUTER_STATS.reset(token)
+
+
+def global_load_balance_loss(rows: List[list], n_experts: int, device) -> torch.Tensor:
+    """The aux loss of the whole batch from each row's
+    :func:`record_router_stats` list: per layer, E * sum_e f_e * p_e with the
+    counts summed over the rows and p the token-weighted mean of the rows'
+    mean probabilities (differentiable through them), summed over layers on
+    ``device``. The mean of the rows' own losses would be another number."""
+    aux = torch.zeros((), dtype=torch.float32, device=device)
+    for layer in zip(*rows, strict=True):
+        counts = sum(c.to(device) for c, _, _ in layer)
+        tokens = sum(n for _, _, n in layer)
+        p_mean = sum(p.to(device) * n for _, p, n in layer) / tokens
+        f = counts / torch.clamp(counts.sum(), min=1.0)
+        aux = aux + n_experts * (f * p_mean).sum()
+    return aux
 
 
 def capacity_of(cfg, S: int) -> int:
@@ -104,6 +153,7 @@ def moe_ffn(
     p: dict,            # {'router' (D,E), 'w1' (E,D,F), 'w3' (E,D,F), 'w2' (E,F,D)}
     x: torch.Tensor,    # (B, S, D)
     cfg,
+    constrain=no_constrain,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B,S,D), aux_loss ())."""
     B, S, D = x.shape
@@ -125,12 +175,15 @@ def moe_ffn(
     # dropped ones all land in the trash slot, which is cut off. ---
     xe = _Dispatch.apply(x, eid, slot, E, capacity, k)
     xe = xe.view(B, E, capacity + 1, D)[:, :, :capacity]
+    # The expert all-to-all in the JAX package: batch on data, experts on model.
+    xe = constrain(xe, ("batch", "experts", None, None))
 
     # --- expert computation (SwiGLU), batched over (B, E) ---
     a = torch.einsum("becd,edf->becf", xe, p["w1"])
     silu = a * torch.sigmoid(a.float()).to(a.dtype)
     h = silu * torch.einsum("becd,edf->becf", xe, p["w3"])
     ye = torch.einsum("becf,efd->becd", h, p["w2"])
+    ye = constrain(ye, ("batch", "experts", None, None))
 
     # --- combine: weight the slots in expert space, scatter-add each slot
     # to its token (an empty slot goes to the dropped row S). ---

@@ -2,9 +2,10 @@
 (mirror of ``repro.models.spec``).
 
 A ParamSpec tree (nested dicts of LeafSpec) is built once per model config;
-it is consumed two ways here:
+it is consumed three ways, as in the JAX package:
   * init_from_spec(spec, generator)   -> real parameters (smoke runs, serving)
   * abstract_from_spec(spec)          -> tensors on the ``meta`` device
+  * partition_from_spec(spec, rules)  -> PartitionSpec tree (mesh placement)
 and ``params_from_numpy`` carries a parameter tree of the JAX package (its
 leaves as numpy arrays) into the port bit for bit.
 """
@@ -12,11 +13,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.sharding.pspec import P
 from repro_torch.utils import resolve_device
 
 
@@ -82,6 +84,15 @@ def abstract_from_spec(spec):
     return map_spec(
         lambda l: torch.empty(l.shape, dtype=torch_dtype(l.dtype), device="meta"), spec
     )
+
+
+def partition_from_spec(spec, rules: Dict[str, Optional[object]]):
+    """rules: logical axis name -> mesh axis (str/tuple) or None."""
+
+    def leaf_spec(l: LeafSpec):
+        return P(*[rules.get(a) if a is not None else None for a in l.axes])
+
+    return map_spec(leaf_spec, spec)
 
 
 def params_from_numpy(tree, device=None):

@@ -37,8 +37,9 @@ def _factored(shape) -> bool:
     return len(shape) >= 2
 
 
-def _stacked(p) -> bool:
-    return p.ndim >= 3 and p.shape[0] > 1 and _factored(p.shape[1:])
+def stacked(shape) -> bool:
+    """A stacked-layer leaf, updated one unit slice at a time."""
+    return len(shape) >= 3 and shape[0] > 1 and _factored(shape[1:])
 
 
 def adafactor_init(params) -> AdafactorState:
@@ -111,7 +112,7 @@ def adafactor_update_(
 
     def leaf(p, g, s):
         lr_t, beta2 = _hyper(step, lr, decay, p.device)
-        if not _stacked(p):
+        if not stacked(p.shape):
             write(p, g, s, lr_t, beta2)
             return
         for i in range(p.shape[0]):
@@ -119,6 +120,16 @@ def adafactor_update_(
 
     tree_map(leaf, params, grads, state.stats)
     return params, state
+
+
+def leaf_update(p, g, s: FactoredLeaf, step, lr=1e-2, decay: float = 0.8, eps1: float = 1e-30,
+                eps2: float = 1e-3, clip_threshold: float = 1.0, weight_decay: float = 0.0):
+    """One unstacked tensor's (new p, new FactoredLeaf), out of place: the
+    arithmetic :func:`adafactor_update_` applies to it (a mesh step runs it
+    on a leaf gathered whole from its shards, so the factored statistics are
+    the whole leaf's)."""
+    lr_t, beta2 = _hyper(step, lr, decay, p.device)
+    return _update(p, g, s, lr_t, beta2, eps1, eps2, clip_threshold, weight_decay)
 
 
 def adafactor_update(params, grads, state: AdafactorState, step, *args, **kw):

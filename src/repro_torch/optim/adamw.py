@@ -43,16 +43,21 @@ def _is_tree(lr) -> bool:
     return isinstance(lr, Mapping) or (dataclasses.is_dataclass(lr) and not isinstance(lr, type))
 
 
-def _prepare(params, step, lr, b1, b2):
-    """(bias corrections c1, c2, the rate tree) on the parameters' device."""
-    if callable(lr):
-        lr = lr(step)
-    dev = tree_flatten(params)[0][0].device
+def _corrections(step, b1, b2, dev):
     # Bias corrections in float32, as jnp.power on a float32 t computes them
     # (a Python float power would be float64 and drift by ulps).
     t = torch.as_tensor(step, dtype=torch.float32, device=dev) + 1.0
     c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=dev), t)
     c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=dev), t)
+    return c1, c2
+
+
+def _prepare(params, step, lr, b1, b2):
+    """(bias corrections c1, c2, the rate tree) on the parameters' device."""
+    if callable(lr):
+        lr = lr(step)
+    dev = tree_flatten(params)[0][0].device
+    c1, c2 = _corrections(step, b1, b2, dev)
     as_rate = lambda r: torch.as_tensor(r, dtype=torch.float32, device=dev)
     if _is_tree(lr):
         rates = tree_map(lambda p, r: as_rate(r), params, lr)
@@ -98,6 +103,32 @@ def adamw_update_(
 
     tree_map(one, params, grads, state.mu, state.nu, rates)
     return params, state
+
+
+def adamw_scalars(step, lr, device, b1: float = 0.9, b2: float = 0.999):
+    """(c1, c2, rate) of step ``step`` on ``device``, as the in-place form
+    computes them for a scalar rate or a schedule."""
+    if callable(lr):
+        lr = lr(step)
+    c1, c2 = _corrections(step, b1, b2, device)
+    return c1, c2, torch.as_tensor(lr, dtype=torch.float32, device=device)
+
+
+@torch.no_grad()
+def adamw_piece_(p, g, m, v, scalars, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.0) -> None:
+    """One AdamW step in place on a slice of a leaf: ``p`` and ``g`` may be
+    strided views of a larger piece (a ZeRO-1 state shard's part of its
+    parameter), ``m`` and ``v`` its moments. Updated a block of axis 0 at a
+    time; elementwise, so the values are those of :func:`adamw_update_`."""
+    c1, c2, rate = scalars
+    rows = max(1, INPLACE_CHUNK // max(1, p[0].numel()))
+    for lo in range(0, p.shape[0], rows):
+        sl = slice(lo, lo + rows)
+        pc, gc, mc, vc = p[sl], g[sl], m[sl], v[sl]
+        new = _leaf(pc, gc, mc, vc, rate, c1, c2, b1, b2, eps, weight_decay)
+        for dst, src in zip((pc, mc, vc), new):
+            dst.copy_(src)
 
 
 def adamw_update(params, grads, state: AdamWState, step, *args, **kw):

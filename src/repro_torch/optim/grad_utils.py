@@ -17,11 +17,18 @@ def global_norm(tree) -> torch.Tensor:
     leaves = tree_flatten(tree)[0]
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for x in leaves:
-        flat = x.reshape(-1)
-        for lo in range(0, flat.numel(), NORM_CHUNK):
-            c = flat[lo:lo + NORM_CHUNK].to(torch.float32)
-            total = total + torch.dot(c, c)
+        total = add_squares(total, x)
     return torch.sqrt(total)
+
+
+def add_squares(total: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``total`` plus the sum of squares of ``x`` (float32, a slice of
+    NORM_CHUNK elements at a time, each added in turn)."""
+    flat = x.reshape(-1)
+    for lo in range(0, flat.numel(), NORM_CHUNK):
+        c = flat[lo:lo + NORM_CHUNK].to(torch.float32)
+        total = total + torch.dot(c, c)
+    return total
 
 
 @torch.no_grad()

@@ -2,8 +2,9 @@
 (mirror of ``repro.sharding``).
 
 Lazy re-exports, so importing ``repro_torch.sharding`` loads no render
-code. Of the JAX package's ``policies`` the render specs and placement are
-ported; the LM's sharding rules come with ROADMAP queue 1, item 13.
+code. ``policies`` holds the JAX package's render specs and LM rules, and
+the placement of tensors over a mesh (``MeshTensor``, ``place``,
+``gather``).
 """
 
 _LAZY = {
@@ -12,7 +13,7 @@ _LAZY = {
     "shard_scene_host": "repro_torch.sharding.scene",
     "scene_flat": "repro_torch.sharding.scene",
     "unshard_scene": "repro_torch.sharding.scene",
-    "PartitionSpec": "repro_torch.sharding.policies",
+    "PartitionSpec": "repro_torch.sharding.pspec",
     "Placement": "repro_torch.sharding.policies",
     "place": "repro_torch.sharding.policies",
     "camera_batch_pspec": "repro_torch.sharding.policies",
@@ -20,6 +21,12 @@ _LAZY = {
     "render_replicated_pspec": "repro_torch.sharding.policies",
     "scene_shard_pspec": "repro_torch.sharding.policies",
     "feature_shard_pspec": "repro_torch.sharding.policies",
+    "MeshTensor": "repro_torch.sharding.policies",
+    "gather": "repro_torch.sharding.policies",
+    "param_rules": "repro_torch.sharding.policies",
+    "activation_rules": "repro_torch.sharding.policies",
+    "make_constrain": "repro_torch.sharding.policies",
+    "batch_specs": "repro_torch.sharding.policies",
 }
 
 __all__ = sorted(_LAZY)

@@ -15,8 +15,16 @@ of autograd through their plain versions (the JAX package's own bound for
 its flash VJP); a smoke config's loss within 1e-5 relative of the host's
 and each gradient leaf within 1e-4 of its largest magnitude (other
 summation orders, and CUDA's scatter-adds in no fixed order; the CPU tests
-measure up to 8.7e-6 between the port and JAX). TF32 is off for these
-tests.
+measure up to 8.7e-6 between the port and JAX). Steps over a mesh of the
+card against the one-device steps on the card, at the CPU tests' bounds:
+metrics at atol/rtol 1e-5 (the gradient norm at rtol 1e-4), prefill
+logits at 1e-5, decode tokens equal, and each parameter element after two
+steps within 1e-5 of its leaf's largest magnitude plus what Adam makes of
+rounding: the mesh sums a gradient element's batch terms in another order,
+and Adam divides each element by its own scale, so an element's steps (the
+sum of the rates, lr) move by about lr * n / |g|. The bound takes n = 1e-8
+of the global gradient norm (chip_smoke's ``lm_mesh`` reads up to 1.2e-9)
+and the smaller |g| / norm of the two steps. TF32 is off for these tests.
 """
 import dataclasses
 
@@ -26,11 +34,14 @@ import torch
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.data import TokenStream, make_batch
 from repro_torch.launch.serve import generate
+from repro_torch.launch import steps
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.launch.train import device_batch
-from repro_torch.models import attention, build_param_spec, forward, loss_fn, moe
+from repro_torch.models import attention, build_param_spec, forward, init_cache, loss_fn, moe
 from repro_torch.models.spec import init_from_spec
-from repro_torch.optim import adamw_init
+from repro_torch.optim import adamw_init, linear_warmup_cosine
+from repro_torch.sharding.policies import gather
 from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
 from torch_parity import cuda_device  # noqa: F401
 
@@ -42,6 +53,12 @@ CARD_VS_HOST = 1e-4
 FUNCTION_VS_AUTOGRAD = 5e-5
 LOSS_CARD_VS_HOST = 1e-5
 GRAD_CARD_VS_HOST = 1e-4
+TOL = dict(atol=1e-5, rtol=1e-5)
+GRAD_TOL = 1e-4
+PARAM_TOL = 1e-5
+GRAD_NOISE = 1e-8
+MESH_LR = (1e-3, 1, 10)   # rate, warm-up steps, total steps
+MESH_ARCHS = ["granite-3-2b", "granite-moe-1b-a400m", "mamba2-370m"]
 
 
 @pytest.fixture()
@@ -190,3 +207,87 @@ def test_bf16_train_steps_on_the_card(cuda_device):
     losses = [step(params, opt, batch, i)[2]["loss"].item() for i in range(5)]
     assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
     assert all(p.dtype == torch.bfloat16 and p.is_cuda for p in tree_flatten(params)[0])
+
+
+# --------------------------------------------------------------------------
+# steps over a mesh of the card
+# --------------------------------------------------------------------------
+
+def mesh_against_one_device(cfg, mesh, device, n_steps=2):
+    """Two train steps over ``mesh`` and on ``device`` from the same
+    parameters and batches: the metrics and the parameters after them, each
+    element within the bound of the module docstring."""
+    params = init_from_spec(build_param_spec(cfg), torch.Generator().manual_seed(0), device)
+    placed = steps.place_params(cfg, mesh, params)
+    rate, warmup, total = MESH_LR
+    one, _ = make_train_step(cfg, lr=rate, warmup=warmup, total_steps=total)
+    over, _ = make_train_step(cfg, mesh, lr=rate, warmup=warmup, total_steps=total)
+    lr_sum = sum(float(linear_warmup_cosine(rate, warmup, total)(i)) for i in range(n_steps))
+    opt, mopt = adamw_init(params), steps.init_opt_state(placed, "adamw")
+    stream = TokenStream(cfg.vocab, 4, 32, seed=3)
+    ratio = []   # each leaf's least |g| / global norm, element by element
+    for i in range(n_steps):
+        b = device_batch(make_batch(stream, i, cfg.frontend, cfg.n_frontend_tokens, cfg.d_model),
+                         device)
+        grads = smoke_loss_and_grads(cfg, params, b)[1]
+        gnorm = float(sum(g.double().square().sum() for g in grads).sqrt())
+        ratio = [torch.minimum(r, g.abs() / gnorm) for r, g in zip(ratio, grads)] or [
+            g.abs() / gnorm for g in grads]
+        del grads
+        _, _, m1 = one(params, opt, b, i)
+        _, _, mm = over(placed, mopt, b, i)
+        for key in ("loss", "ce", "aux"):
+            assert abs(mm[key].item() - m1[key].item()) <= TOL["atol"] + TOL["rtol"] * abs(
+                m1[key].item()), key
+        assert abs(mm["grad_norm"].item() - m1["grad_norm"].item()) <= GRAD_TOL * abs(
+            m1["grad_norm"].item())
+    pairs = list(zip(tree_flatten(gather(placed, device))[0], tree_flatten(params)[0]))
+    for (a, b), r in zip(pairs, ratio, strict=True):
+        assert a.device == b.device
+        bound = PARAM_TOL * float(b.abs().max()) + lr_sum * GRAD_NOISE / r.clamp(min=1e-30)
+        assert bool(((a - b).abs() <= bound).all())
+    return placed
+
+
+@pytest.mark.parametrize("fsdp", [False, True], ids=["tp", "fsdp"])
+@pytest.mark.parametrize("arch", MESH_ARCHS)
+def test_mesh_train_steps_on_the_card_match_one_device(arch, fsdp, cuda_device, no_tf32):
+    """A (2, 2) mesh of the card listed four times, FSDP off and on, ZeRO-1
+    state: every shard lives on the card."""
+    cfg = dataclasses.replace(get_smoke_config(arch), force_fsdp=fsdp)
+    mesh = make_host_mesh(2, 2, devices=[cuda_device] * 4)
+    placed = mesh_against_one_device(cfg, mesh, cuda_device)
+    assert all(t.is_cuda for m in tree_flatten(placed)[0] for _, _, t in m.distinct())
+
+
+def test_mesh_train_step_over_the_card_and_the_host(cuda_device, no_tf32):
+    """A (2, 1) mesh of [card, host]: row 1 computes on the host, the
+    replicas of each slice on the two devices add their gradients and
+    refresh each other after the ZeRO-1 update."""
+    cfg = get_smoke_config("granite-moe-1b-a400m")
+    mesh = make_host_mesh(2, 1, devices=[cuda_device, "cpu"])
+    placed = mesh_against_one_device(cfg, mesh, cuda_device)
+    assert {t.device.type for m in tree_flatten(placed)[0] for _, _, t in m.distinct()} == {
+        "cuda", "cpu"}
+
+
+@pytest.mark.parametrize("arch", MESH_ARCHS)
+def test_mesh_prefill_and_decode_on_the_card_match_one_device(arch, cuda_device, no_tf32):
+    cfg = dataclasses.replace(get_smoke_config(arch), force_fsdp=True)
+    mesh = make_host_mesh(2, 2, devices=[cuda_device] * 4)
+    with torch.inference_mode():
+        params = init_from_spec(build_param_spec(cfg), torch.Generator().manual_seed(0),
+                                cuda_device)
+        placed = steps.place_params(cfg, mesh, params)
+        b = device_batch(make_batch(TokenStream(cfg.vocab, 4, 16, seed=2), 0), cuda_device)
+        want = steps.make_prefill_step(cfg)(params, b)
+        got = steps.make_prefill_step(cfg, mesh)(placed, b).gather()
+        assert float((got - want).abs().max()) <= TOL["atol"] + TOL["rtol"] * float(
+            want.abs().max())
+        cache1, cachem = init_cache(cfg, 4, 6, cuda_device), steps.mesh_cache(cfg, mesh, 4, 6)
+        one, over = steps.make_decode_step(cfg), steps.make_decode_step(cfg, mesh)
+        t1 = tm = b["tokens"][:, 0]
+        for pos in range(4):
+            t1, cache1 = one(params, cache1, t1, pos)
+            tm, cachem = over(placed, cachem, tm, pos)
+            assert torch.equal(tm.gather(), t1)

@@ -5,7 +5,8 @@ JAX package's two ``custom_vjp``s, here ``torch.autograd.Function``s),
 mamba2-370m smoke configs (float32), three ``make_train_step`` steps with
 AdamW and with Adafactor, and the port's own: remat bitwise no remat, a
 finite step for every arch's smoke config, ``train()`` resuming a bf16 run
-bitwise, the CLI, ``examples/train_lm.py``, and the mesh that is not ported.
+bitwise, the CLI, ``examples/train_lm.py``, and the three step builders over
+a mesh against one device.
 
 The JAX parameters come from ``repro.models.spec.init_from_spec`` and
 cross through ``params_from_numpy``; other inputs from numpy seeds.
@@ -404,11 +405,37 @@ def test_prefill_and_decode_steps():
 
 
 def test_unported_mesh_train_step():
-    """The mesh half of launch/steps.py is ROADMAP queue 1 item 13 part 3."""
-    cfg = configs.get_smoke_config("granite-3-2b")
-    for build in (steps.make_train_step, steps.make_prefill_step, steps.make_decode_step):
-        with pytest.raises(NotImplementedError, match="item 13 part 3"):
-            build(cfg, mesh=object())
+    """The mesh half of launch/steps.py (ROADMAP queue 1 item 13 part 3,
+    once unported) against one device: the three builders over a (2, 2)
+    mesh of virtual CPU devices on granite-3-2b's smoke config, FSDP on. A
+    train step's metrics at TOL and its parameters within PARAM_TOL, the
+    prefill logits at TOL, a decode step's tokens equal."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_cache
+    from repro_torch.sharding.policies import gather
+
+    cfg = dataclasses.replace(configs.get_smoke_config("granite-3-2b"), force_fsdp=True)
+    mesh = make_host_mesh(2, 2, devices=["cpu"] * 4)
+    params = spec.init_from_spec(build_param_spec(cfg), torch.Generator().manual_seed(0), "cpu")
+    placed = steps.place_params(cfg, mesh, params)
+    _, batch = text_batch(cfg)
+    with torch.inference_mode():
+        want = steps.make_prefill_step(cfg)(params, batch)
+        torch.testing.assert_close(steps.make_prefill_step(cfg, mesh)(placed, batch).gather(),
+                                   want, **TOL)
+        nxt, _ = steps.make_decode_step(cfg)(params, init_cache(cfg, 2, 4, "cpu"),
+                                             batch["tokens"][:, 0], 0)
+        nxt_mesh, _ = steps.make_decode_step(cfg, mesh)(placed, steps.mesh_cache(cfg, mesh, 2, 4),
+                                                        batch["tokens"][:, 0], 0)
+        assert torch.equal(nxt_mesh.gather(), nxt)
+    step, _ = steps.make_train_step(cfg, lr=1e-3, warmup=0)
+    step_mesh, _ = steps.make_train_step(cfg, mesh, lr=1e-3, warmup=0)
+    _, _, m = step(params, adamw_init(params), batch, 0)
+    _, _, m_mesh = step_mesh(placed, steps.init_opt_state(placed, "adamw"), batch, 0)
+    for key in m:
+        np.testing.assert_allclose(m_mesh[key].item(), m[key].item(), **TOL, err_msg=key)
+    for a, b in zip(tree_flatten(gather(placed, "cpu"))[0], tree_flatten(params)[0]):
+        assert float((a - b).abs().max()) <= PARAM_TOL * float(b.abs().max())
 
 
 # --------------------------------------------------------------------------
@@ -439,7 +466,19 @@ def test_train_resumes_a_bf16_run_bitwise(tmp_path, monkeypatch):
         assert a.dtype == torch.bfloat16 and torch.equal(a, b)
 
 
-def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
+@pytest.fixture()
+def one_thread():
+    """One intra-op thread for a loop of tiny steps. Where several test
+    processes share the host's cores, torch's default (a thread per core in
+    each process) spins on every small op: the CLI and example tests took
+    80 and 168 s in such a run against 1-2 s on one thread."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def test_train_cli_checkpoints_and_resumes(tmp_path, capsys, one_thread):
     ckpt = str(tmp_path / "ckpt")
     args = ["--arch", "granite-moe-1b-a400m", "--batch", "2", "--seq", "16", "--device", "cpu",
             "--ckpt-dir", ckpt, "--seed", "1"]
@@ -453,7 +492,7 @@ def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
     assert "step     0 loss=" not in out
 
 
-def test_train_lm_example(tmp_path, capsys):
+def test_train_lm_example(tmp_path, capsys, one_thread):
     train_lm_example.main(["--device", "cpu", "--steps", "120", "--batch", "2", "--seq", "32",
                            "--ckpt-dir", str(tmp_path / "ckpt")])
     out = capsys.readouterr().out
