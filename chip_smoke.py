@@ -283,12 +283,44 @@ line each:
                 own gradient), prefill logits
                 (1e-5), four decode steps (tokens equal, cache 1e-5). None
                 of the four kernels may launch.
- 10. kernels  — every ported kernel: launches on its path, on the sharded
+ 10. dryrun  — the dry-run tools (launch/dryrun.py) and the kernels'
+                dense oracles (kernels/ref.py). (a) Each CUDA kernel against
+                its ref.py oracle, run on the host on a copy of the same
+                inputs: three of the main frame's groups (BGM, 3 methods;
+                the fused RM without a FIFO clamp), four of its compacted
+                tiles (the tile RM) and its whole sort table, and the
+                package's edge_case_block, edge_case_lists (the fused RM at
+                gf 1 on them too) and edge_case_rows (K = 1 .. 65536).
+                Gates: BGM words bit for bit; images within 1e-4, NaN in
+                the same places (the kernels stop a tile whose pixels all
+                fall below T = 1e-4 and keep its T, where the oracle
+                multiplies on); sorted keys equal (rows holding NaN
+                excepted: the network places NaN by its own order) and each
+                row's (key, payload) pairs equal as a multiset. (b)
+                granite-3-2b at full width, one pattern unit (FSDP pinned
+                on, as the calibration pins the full model's), bf16, AdamW,
+                remat, batch 2 x 4,096: one train step on the card under the
+                dry run's counters (launch/dryrun.py::count_step), on one
+                device and on a (2, 2) mesh of the card, and the same steps
+                on meta. Gates: the FLOP counts equal exactly, and so do the
+                bytes each position holds. Printed, not gated: bytes moved
+                and collective bytes beside each other, and the meta peak of
+                live tensors beside the card's max_memory_allocated over the
+                step (less what was allocated before it), with their ratio.
+                (c) python -m repro_torch.launch.dryrun in three
+                subprocesses started together: granite-3-2b train_4k
+                (16x16), mamba2-370m long_500k --multi-pod (a batch of one
+                that does not split) and hubert-xlarge decode_32k (a skip
+                record); each must exit 0 and write its record, whose key
+                numbers are printed. None of the four kernels may launch in
+                (b); the count covers this process only, so it does not see
+                (c), whose cells run on meta in child processes.
+ 11. kernels  — every ported kernel: launches on its path, on the sharded
                 path, in the serve phase's realtime run, over the
                 autotune phase, in the gateway's in-process run, on the
                 mesh phase's (2, 2) mesh (its batch and tile_baseline
-                frame), in the lm, lm_train and lm_mesh phases (none),
-                error, times,
+                frame), in the lm, lm_train, lm_mesh and dryrun phases
+                (none), error, times,
                 bound, library time (torch.sort + gather for the bitonic
                 sort). The train phase launches none of them.
 
@@ -300,6 +332,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -3013,6 +3046,322 @@ def lm_mesh_phase(dev, on_card, check, smi, full: bool = True) -> dict:
     return launches
 
 
+DRYRUN_TRAIN = dict(arch="granite-3-2b", batch=2, seq=4096, data=2, model=2)
+DRYRUN_CELLS = (("granite-3-2b", "train_4k", False), ("mamba2-370m", "long_500k", True),
+                ("hubert-xlarge", "decode_32k", False))
+DRYRUN_TIMEOUT_S = 600
+
+
+def frame_for_oracles(feat, masks, origins, in_img, live_per_group, tfeat, torigins,
+                      ttable, grid, chunk: int) -> dict:
+    """Host copies of a few of the main frame's inputs for the dryrun
+    phase's dense oracles: the groups with the most, the median and a
+    quarter's live entries, cut to their last live entry (rounded up to the
+    chunk), and the four compacted tiles with the most entries. The gsm
+    section adds its sort table (``keys``, ``payload``)."""
+    import torch
+
+    from repro_torch.kernels.layout import F_VALID
+
+    order = torch.argsort(live_per_group, descending=True)
+    sel = order[[0, len(order) // 4, len(order) // 2]]
+    f = feat[sel]
+    live = (f[:, F_VALID] > 0.5).any(0).nonzero()
+    kc = -(-(int(live.max()) + 1) // chunk) * chunk if live.numel() else chunk
+    tsel = torch.argsort(ttable.entry_valid.sum(1), descending=True)[:4]
+    return {"feat": f[:, :, :kc].cpu(), "masks": masks[sel][:, :kc].cpu(),
+            "origins": origins[sel].cpu(), "in_img": in_img[sel].cpu(),
+            "tfeat": tfeat[tsel].cpu(), "torigins": torigins[tsel].cpu(),
+            "tile": grid.tile, "gf": grid.gf, "chunk": chunk}
+
+
+def sort_disagreement(keys, payload, got_k, got_v) -> dict:
+    """The sort kernel's rows against ref_sort's on the host: keys that
+    differ in value (rows holding NaN excepted) and rows whose (key,
+    payload) pairs differ as a multiset."""
+    import torch
+
+    from repro_torch.kernels.ref import ref_sort
+
+    want_k, want_v = ref_sort(keys, payload)
+    clean = ~keys.isnan().any(-1)
+    key_off = int((got_k[clean] != want_k[clean]).sum())
+
+    def pairs(k, v):
+        kb = k.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        vb = v.contiguous().view(torch.int32).to(torch.int64)
+        return torch.sort((vb << 32) | kb, dim=-1).values
+
+    rows_off = int((pairs(got_k, got_v) != pairs(want_k, want_v)).any(-1).sum())
+    return {"keys_off": key_off, "rows_pairs_off": rows_off}
+
+
+def dryrun_oracles(dev, check, frame) -> dict:
+    """(a) of the dryrun phase: each kernel on ``dev`` against its
+    kernels/ref.py oracle on the host. Returns the worst gaps."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitmask_gen import KERNEL_METHODS, bitmask_kernel, edge_case_block
+    from repro_torch.kernels.bitonic_sort import bitonic_sort_kernel, edge_case_rows
+    from repro_torch.kernels.raster_tile import (
+        TILE_WINDOW,
+        edge_case_lists,
+        raster_group_fused_kernel,
+        raster_tile_kernel,
+    )
+
+    out = {"bitmask_gen": {"cases": 0, "words": 0, "differing_words": 0},
+           "raster_group_fused": {"cases": 0, "rgb_max_abs_err": 0.0, "t_max_abs_err": 0.0,
+                                  "nan_off": 0},
+           "raster_tile": {"cases": 0, "rgb_max_abs_err": 0.0, "t_max_abs_err": 0.0,
+                           "nan_off": 0},
+           "bitonic_sort": {"cases": 0, "keys_off": 0, "rows_pairs_off": 0}}
+
+    def bgm(feat, origins, in_img, tile_px, gf, method):
+        got = bitmask_kernel(feat.to(dev), origins.to(dev), in_img.to(dev), tile_px, gf,
+                             method).cpu()
+        want = ref.ref_bitmask(feat, origins, in_img, tile_px, gf, method)
+        o = out["bitmask_gen"]
+        o["cases"] += 1
+        o["words"] += want.numel()
+        o["differing_words"] += int((got != want).sum())
+
+    def image(name, got, want):
+        """rgb (rows 0-2) and T (row 3) apart: a kernel stops a tile whose
+        pixels all fall below T = 1e-4 and keeps its T, where the oracle
+        multiplies on, so T may differ by up to 1e-4 by design."""
+        o = out[name]
+        o["cases"] += 1
+        o["nan_off"] += int((got.isnan() != want.isnan()).sum())
+        if want.numel():
+            gap = (got - want).abs().nan_to_num(0.0)
+            o["rgb_max_abs_err"] = max(o["rgb_max_abs_err"], float(gap[..., :3, :].max()))
+            o["t_max_abs_err"] = max(o["t_max_abs_err"], float(gap[..., 3, :].max()))
+
+    def fused(feat, masks, origins, tile_px, gf, chunk):
+        got, _ = raster_group_fused_kernel(feat.to(dev), masks.to(dev), origins.to(dev),
+                                           tile_px, gf, chunk=chunk)
+        image("raster_group_fused", got.cpu(),
+              ref.ref_raster_group_fused(feat, masks, origins, tile_px, gf))
+
+    def tile(feat, origins, tile_px, chunk):
+        got, _ = raster_tile_kernel(feat.to(dev), origins.to(dev), tile_px, chunk=chunk)
+        image("raster_tile", got.cpu(), ref.ref_raster_tiles(feat, origins, tile_px))
+
+    def sort(keys, payload):
+        got_k, got_v = bitonic_sort_kernel(keys.to(dev), payload.to(dev))
+        gap = sort_disagreement(keys, payload, got_k.cpu(), got_v.cpu())
+        o = out["bitonic_sort"]
+        o["cases"] += 1
+        for k, v in gap.items():
+            o[k] += v
+
+    tile_px, gf, chunk = frame["tile"], frame["gf"], frame["chunk"]
+    for method in KERNEL_METHODS:
+        bgm(frame["feat"], frame["origins"], frame["in_img"], tile_px, gf, method)
+    fused(frame["feat"], frame["masks"], frame["origins"], tile_px, gf, chunk)
+    tile(frame["tfeat"], frame["torigins"], tile_px, chunk)
+    sort(frame["keys"], frame["payload"])
+    for g in range(1, 6):
+        for t in (8, 16):
+            block = edge_case_block(g, t, torch.Generator().manual_seed(7))
+            for method in KERNEL_METHODS:
+                bgm(*block, t, g, method)
+    for t in (4, 6, 8, 12, 16, 32, 48, 64):
+        for c in (32, TILE_WINDOW, 2048):
+            f_e, o_e = edge_case_lists(t, c, torch.Generator().manual_seed(3))
+            tile(f_e, o_e, t, c)
+            if t in (8, 16) and c != 2048:   # each list a group of one member tile
+                fused(f_e, torch.ones(f_e.shape[0], f_e.shape[2], dtype=torch.int32), o_e,
+                      t, 1, c)
+    for p in range(GSM_EDGE_MAX_LOG2 + 1):
+        sort(*edge_case_rows(2**p, torch.Generator().manual_seed(p)))
+
+    o = out["bitmask_gen"]
+    check(o["differing_words"] == 0,
+          f"dryrun: the BGM leaves ref_bitmask in {o['differing_words']} words")
+    for name in ("raster_group_fused", "raster_tile"):
+        o = out[name]
+        check(max(o["rgb_max_abs_err"], o["t_max_abs_err"]) <= IMAGE_TOL and o["nan_off"] == 0,
+              f"dryrun: {name} from its oracle by rgb {o['rgb_max_abs_err']}, T "
+              f"{o['t_max_abs_err']} (tol {IMAGE_TOL}), {o['nan_off']} NaN placements off")
+    o = out["bitonic_sort"]
+    check(o["keys_off"] == 0 and o["rows_pairs_off"] == 0, f"dryrun: the GSM leaves ref_sort: {o}")
+    return out
+
+
+def dryrun_counts(dev, on_card, check, full: bool = True) -> dict:
+    """(b) of the dryrun phase: one train step under count_step on ``dev``
+    and on meta, on one device and on a (2, 2) mesh."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import TokenStream, make_batch
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import build_param_spec
+    from repro_torch.models.spec import abstract_from_spec, init_from_spec
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.policies import position_bytes
+    from repro_torch.utils import pytree_bytes
+
+    run = dict(DRYRUN_TRAIN)
+    base = (get_config if full else get_smoke_config)(run["arch"])
+    seq = run["seq"] if full else 64
+    mesh = make_host_mesh(run["data"], run["model"], devices=[dev] * 4)
+    meta_mesh = make_host_mesh(run["data"], run["model"], devices=["meta"] * 4)
+    cfg = dataclasses.replace(base, n_layers=len(base.pattern),
+                              force_fsdp=steps.use_fsdp(base, mesh))
+    spec = build_param_spec(cfg)
+
+    def counted(step, kw):
+        gc.collect()   # a cycle of the last step's garbage, freed inside this one, would skew its peak
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated() if on_card else 0
+        got = count_step(step, kw)
+        if on_card:
+            torch.cuda.synchronize()
+            got["card_peak"] = torch.cuda.max_memory_allocated() - before
+        got.pop("table")
+        return got
+
+    params = init_from_spec(spec, torch.Generator(device=dev).manual_seed(0), dev)
+    data = device_batch(make_batch(TokenStream(cfg.vocab, run["batch"], seq, seed=0), 0,
+                                   cfg.frontend, cfg.n_frontend_tokens, cfg.d_model), dev)
+    one, _ = steps.make_train_step(cfg)
+    opt = adamw_init(params)
+    held_one = pytree_bytes(params) + pytree_bytes(opt)
+    card_one = counted(one, dict(params=params, opt_state=opt, batch=data, step=0))
+    placed = steps.place_params(cfg, mesh, params)
+    del params, opt
+    mopt = steps.init_opt_state(placed, "adamw")
+    p_b, s_b = position_bytes(placed), position_bytes(mopt)
+    held_mesh = {pos: p_b[pos] + s_b[pos] for pos in mesh.positions}
+    over, _ = steps.make_train_step(cfg, mesh)
+    card_mesh = counted(over, dict(params=placed, opt_state=mopt, batch=data, step=0))
+    del placed, mopt, data
+
+    meta_params = abstract_from_spec(spec)
+    meta_opt = adamw_init(meta_params)
+    meta_batch = {k: torch.empty((run["batch"], seq), dtype=torch.int64, device="meta")
+                  for k in ("tokens", "labels")}
+    meta_one = counted(one, dict(params=meta_params, opt_state=meta_opt, batch=meta_batch,
+                                 step=0))
+    meta_held_one = pytree_bytes(meta_params) + pytree_bytes(meta_opt)
+    meta_step, kw = steps.jit_for_cell(cfg, ShapeCell("dryrun", seq, run["batch"], "train"),
+                                       meta_mesh)
+    p_b, s_b = position_bytes(kw["params"]), position_bytes(kw["opt_state"])
+    meta_held = {pos: p_b[pos] + s_b[pos] for pos in meta_mesh.positions}
+    meta_mesh_counts = counted(meta_step, kw)
+
+    def pair(card, meta):
+        out = {k: {"card": card[k], "meta": meta[k]}
+               for k in ("flops", "bytes", "temp", "all-gather", "all-reduce",
+                         "reduce-scatter", "seconds")}
+        if "card_peak" in card:
+            out["card_max_memory_allocated"] = card["card_peak"]
+            out["peak_ratio_meta_over_card"] = meta["temp"] / card["card_peak"]
+        return out
+
+    result = {"arch": cfg.name, "units": cfg.n_units, "fsdp": cfg.force_fsdp,
+              "batch": run["batch"], "seq": seq,
+              "one_device": {**pair(card_one, meta_one),
+                             "held_bytes": {"card": held_one, "meta": meta_held_one}},
+              "mesh_2x2": {**pair(card_mesh, meta_mesh_counts),
+                           "held_bytes": {"card": {f"{r},{c}": v for (r, c), v in held_mesh.items()},
+                                          "meta": {f"{r},{c}": v for (r, c), v in meta_held.items()}}}}
+    check(card_one["flops"] == meta_one["flops"] and card_mesh["flops"] == meta_mesh_counts["flops"],
+          f"dryrun: FLOPs differ card vs meta: one device {card_one['flops']} vs "
+          f"{meta_one['flops']}, mesh {card_mesh['flops']} vs {meta_mesh_counts['flops']}")
+    check(held_one == meta_held_one and held_mesh == meta_held,
+          "dryrun: the bytes a position holds differ card vs meta")
+    check(card_one["flops"] > 0 and card_mesh["flops"] > 0, "dryrun: no FLOPs counted")
+    return result
+
+
+def dryrun_cli_start(cell, out_dir: Path):
+    arch, shape, multi_pod = cell
+    report = out_dir / f"{arch}_{shape}.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+           "--report", str(report)] + (["--multi-pod"] if multi_pod else [])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, report, time.perf_counter()
+
+
+def dryrun_phase(dev, on_card, check, smi, frame, full: bool = True) -> dict:
+    """The dry-run tools and the kernels' dense oracles (module docstring,
+    phase 10). ``frame`` holds :func:`frame_for_oracles`'s inputs.
+    ``full=False`` (a rehearsal on the host) counts granite-3-2b's smoke
+    config in (b) and runs the CLI cells all the same. Returns the kernels'
+    launches over (b), none of them on that path (the count is this
+    process's: the CLI cells of (c) run on meta in child processes)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
+        out_dir = Path(tmp)
+        procs = [dryrun_cli_start(cell, out_dir) for cell in DRYRUN_CELLS]
+        try:
+            oracles = dryrun_oracles(dev, check, frame)
+            emit({"phase": "dryrun", "check": "oracles", "nvidia_smi": smi, **oracles,
+                  "image_tol": IMAGE_TOL})
+            build.reset_launches()
+            with torch.inference_mode(False):
+                counts = dryrun_counts(dev, on_card, check, full)
+            emit({"phase": "dryrun", "check": "meta_vs_card", "nvidia_smi": smi, **counts})
+            cells = []
+            for cell, (proc, report, t0) in zip(DRYRUN_CELLS, procs):
+                text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+                rec = json.loads(report.read_text())[0] if report.exists() else None
+                row = {"cell": list(cell), "exit": proc.returncode,
+                       "seconds": time.perf_counter() - t0,
+                       "printed": [ln for ln in text.splitlines()
+                                   if ln.startswith(("OK", "SKIP", "summary"))]}
+                if rec and rec["status"] == "ok":
+                    r, m = rec["roofline"], rec["memory_analysis"]
+                    row.update(status="ok", compile_s=rec["compile_s"], chips=r["chips"],
+                               flops_per_device=r["flops_per_device"],
+                               bytes_per_device=r["bytes_per_device"],
+                               collective_by_kind=r["collective_by_kind"],
+                               argument_bytes_per_device=m["argument_bytes_per_device"],
+                               temp_bytes_per_device=m["temp_bytes_per_device"],
+                               compute_s=r["compute_s"], memory_s=r["memory_s"],
+                               collective_s=r["collective_s"], dominant=r["dominant"],
+                               useful_flops_ratio=r["useful_flops_ratio"])
+                elif rec:
+                    row.update(status=rec["status"], reason=rec.get("reason"))
+                cells.append(row)
+                emit({"phase": "dryrun", "check": "cli", **row})
+                check(proc.returncode == 0 and rec is not None and row["printed"],
+                      f"dryrun: the CLI on {cell} exited {proc.returncode} or printed no record:\n"
+                      f"{text[-2000:]}")
+            check(cells[-1].get("status") == "skip", f"dryrun: {DRYRUN_CELLS[-1]} is not a skip")
+        finally:
+            for proc, _, _ in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    launches = dict(build.LAUNCHES)
+    emit({"phase": "dryrun", "check": "phase", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t_phase, "launches": launches})
+    check(not any(launches.values()),
+          f"dryrun: a GS-TG kernel launched on the dry-run path: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3344,6 +3693,8 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     emit({"phase": "kernel", "kernel": "raster_group_fused", "check": "fused_vs_tile",
           **fused_vs_tile(feat, masks_main, origins, tfeat, torigins, grid, cfg.chunk,
                           cfg.tile_capacity)})
+    oracle_frame = frame_for_oracles(feat, masks_main, origins, in_img, live_per_group, tfeat,
+                                     torigins, ttable, grid, cfg.chunk)
     del tfeat, ttable, feat
 
     # -- wide_chunk: chunk 2048, past the 1,024 entries the tile kernel
@@ -3469,6 +3820,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     kernels["bitonic_sort"] = dict(
         max_abs_err=float((sk - pk).abs().nan_to_num().max()), ms=ms, plain_ms=plain_ms,
         nbytes=4 * Gs * Ks * 4, ops=stages_n * (Ks // 2) * Gs, library_ms=library_ms)
+    oracle_frame.update(keys=keys.cpu(), payload=payload_f.cpu())
     del keys, payload, payload_f, sk, sv, pk, pv, lib, table_keys, perm
 
     # -- 3. the main path ----------------------------------------------------
@@ -3693,7 +4045,11 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
     with torch.inference_mode(False):
         lm_mesh_launches = lm_mesh_phase(dev, on_card, check, smi)
 
-    # -- 10. every ported kernel -------------------------------------------------
+    # -- 10. the dry-run tools and the kernels' dense oracles ---------------------
+    dryrun_launches = dryrun_phase(dev, on_card, check, smi, oracle_frame)
+    del oracle_frame
+
+    # -- 11. every ported kernel -------------------------------------------------
     replaces = {
         "bitmask_gen": ("src/repro/kernels/bitmask_gen.py:74", "gstg"),
         "raster_group_fused": ("src/repro/kernels/raster_tile.py:229", "gstg"),
@@ -3722,6 +4078,7 @@ def run(dev, smi: str, width: int, height: int, n_main: int, n_lossless: int) ->
             "launches_lm": lm_launches[name],
             "launches_lm_train": lm_train_launches[name],
             "launches_lm_mesh": lm_mesh_launches[name],
+            "launches_dryrun": dryrun_launches[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": k.get("library_ms"),

@@ -2,23 +2,27 @@
 
 A :class:`RenderMesh` is a 2-D grid of ``torch.device``: rows lay over the
 ``'data'`` axis (camera lanes), columns over ``'model'`` (shards of the
-gaussian axis). One process drives every device of a mesh: a scene shard
-lives on its column's device, the per-shard frontends run there, and the
-merge and the backend run once per lane on the row's lead device (column
-0), to which the owner-masked psum gather copies each shard's
-contribution (``core/projection.py``).
+gaussian axis). An LM production mesh (:func:`make_production_mesh`) may
+add a ``'pod'`` axis before ``'data'``: its rows are then pod x data,
+row-major, as JAX orders a ``('pod', 'data')`` entry. One process drives
+every device of a mesh: a scene shard lives on its column's device, the
+per-shard frontends run there, and the merge and the backend run once per
+lane on the row's lead device (column 0), to which the owner-masked psum
+gather copies each shard's contribution (``core/projection.py``).
 
 A mesh may name one device more than once. Such virtual devices (for
 instance ``[torch.device("cpu")] * 4``) are the counterpart of the JAX
 package's forced host device count: every code path of a several-device
 mesh runs, on one device.
 
-``make_production_mesh`` (a v5e pod for the LM stack) is not ported yet
-(ROADMAP queue 1, item 13).
+:func:`make_production_mesh` builds the LM stack's (16, 16) or (2, 16, 16)
+mesh over 256 (512) cards, or over ``meta`` devices: the dry run
+(``launch/dryrun.py``) builds it so, since one machine holds no such pod.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -32,26 +36,36 @@ DevicesArg = Union[None, int, Sequence[Union[str, torch.device]]]
 class RenderMesh:
     """A (data, model) grid of devices. ``grid[r][c]`` is the device of
     data row ``r`` and model column ``c``; a 1-D ``('data',)`` mesh has one
-    column. Hashable and compared by value (devices and axis names)."""
+    column. A ``('pod', 'data', 'model')`` mesh has ``pods`` pods of
+    ``rows // pods`` data rows each: row ``r`` is pod ``r // data``, data
+    index ``r % data``. Hashable and compared by value (devices, axis
+    names and pods)."""
 
     grid: Tuple[Tuple[torch.device, ...], ...]
     axis_names: Tuple[str, ...]
+    pods: int = 1
 
     def __post_init__(self):
         if not self.grid or not self.grid[0]:
             raise ValueError("a render mesh needs at least one device")
         if len({len(row) for row in self.grid}) != 1:
             raise ValueError("every row of a render mesh has as many devices")
-        if self.axis_names not in (("data",), ("data", "model")):
+        if self.axis_names not in (("data",), ("data", "model"), ("pod", "data", "model")):
             raise ValueError(f"unknown mesh axes {self.axis_names!r}")
         if self.axis_names == ("data",) and len(self.grid[0]) != 1:
             raise ValueError("a ('data',) mesh has one column")
+        pod = self.axis_names[0] == "pod"
+        if self.pods < 1 or (not pod and self.pods != 1) or len(self.grid) % self.pods:
+            raise ValueError(f"{self.pods} pods do not split the {len(self.grid)} rows "
+                             f"of a {self.axis_names!r} mesh")
 
     @property
     def shape(self) -> Mapping[str, int]:
         """Axis name -> extent, in axis order (``dict(mesh.shape)`` reads as
         the JAX handle's stats do)."""
         extents = (len(self.grid), len(self.grid[0]))
+        if self.axis_names[0] == "pod":
+            extents = (self.pods, len(self.grid) // self.pods) + extents[1:]
         return dict(zip(self.axis_names, extents))
 
     @property
@@ -71,7 +85,7 @@ class RenderMesh:
     def columns(self) -> int:
         return len(self.grid[0])
 
-    @property
+    @functools.cached_property
     def positions(self) -> Tuple[Tuple[int, int], ...]:
         """Every (row, column), row-major."""
         return tuple((r, c) for r in range(self.rows) for c in range(self.columns))
@@ -134,6 +148,24 @@ def make_host_mesh(data: int = 1, model: int = 1, devices: DevicesArg = None) ->
     devs = devs[: data * model]
     grid = tuple(tuple(devs[r * model:(r + 1) * model]) for r in range(data))
     return RenderMesh(grid, ("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices: DevicesArg = None) -> RenderMesh:
+    """The LM production mesh: (data=16, model=16), or with ``multi_pod``
+    a pure data-parallel ``'pod'`` axis before them, (pod=2, data=16,
+    model=16), as the JAX package's (a TPU v5e pod, or two). ``devices``:
+    ``None`` takes 256 (512) visible cards and raises when fewer are
+    visible; a sequence gives the devices, the first 256 (512) of them (the
+    dry run passes ``["meta"] * n``)."""
+    pods, data, model = (2, 16, 16) if multi_pod else (1, 16, 16)
+    n = pods * data * model
+    devs = mesh_devices(n if devices is None else devices)
+    if len(devs) < n:
+        raise ValueError(f"a production mesh needs {n} devices, got {len(devs)}")
+    rows = pods * data
+    grid = tuple(tuple(devs[r * model:(r + 1) * model]) for r in range(rows))
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return RenderMesh(grid, axes, pods=pods)
 
 
 def one_device_mesh(device) -> RenderMesh:

@@ -10,8 +10,10 @@ and the clipped gradient overwrites the gradient: it never holds a second
 copy of the parameters or the state.
 
 **Over a mesh** (a ``('data', 'model')`` :class:`RenderMesh` from
-``launch/mesh.py::make_host_mesh``; one process drives every device, and a
-device may be listed more than once) the steps take trees of
+``launch/mesh.py::make_host_mesh``, or a ``('pod', 'data', 'model')`` one
+from ``make_production_mesh``, whose data rows are pod x data; one process
+drives every device, and a device may be listed more than once) the steps
+take trees of
 ``MeshTensor`` (``sharding/policies.py``): the parameters placed under
 :func:`param_pspecs` (:func:`place_params`), the optimizer state under
 :func:`zero1_axis` (:func:`init_opt_state`), the decode cache held by each
@@ -49,13 +51,21 @@ out.
   ``'model'`` entry of the cache spec) is not realized: each row's cache
   lives whole on its lead device, where its decode runs.
 
+* Inside ``sharding/policies.py::record_collectives`` the steps count,
+  where each of these copies is made, the bytes it brings to each mesh
+  position from the others, by collective kind (the dry run's stand-in for
+  XLA's collectives).
+
 ``optim/compression.py::compressed_psum`` all-reduces over a
 ``torch.distributed`` process group; a one-process mesh has none (its
 reductions are copies between devices and adds), and neither package calls
-it from a step. Steps over a ``'pod'`` mesh wait for
-``make_production_mesh`` (ROADMAP queue 1, item 13 part 4); the specs
-already take one. ``abstract_{params,opt_state,batch,cache}`` and
-``jit_for_cell`` are part 4 too.
+it from a step.
+
+``abstract_{params,opt_state,batch,cache}`` give a cell's inputs as
+MeshTensor trees of zeros on the mesh's devices (the ``meta``
+device in a dry run), and :func:`jit_for_cell` the step and its inputs for
+one (arch x shape) cell: nothing is jitted or compiled (``launch/dryrun.py``
+runs the step on ``meta``).
 """
 from __future__ import annotations
 
@@ -65,12 +75,19 @@ from typing import Optional
 import torch
 
 from repro_torch.launch.mesh import RenderMesh
+from repro_torch.launch.shapes import ShapeCell
 from repro_torch.models import build_cache_spec, build_param_spec, decode_step, forward
 from repro_torch.models import loss_fn, loss_parts
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import _unbind_units
 from repro_torch.models.moe import global_load_balance_loss, record_router_stats
-from repro_torch.models.spec import is_leaf, partition_from_spec, spec_bytes, torch_dtype
+from repro_torch.models.spec import (
+    abstract_from_spec,
+    is_leaf,
+    partition_from_spec,
+    spec_bytes,
+    torch_dtype,
+)
 from repro_torch.optim import (
     adafactor_update_,
     adamw_update_,
@@ -86,12 +103,17 @@ from repro_torch.sharding.policies import (
     PartitionSpec,
     _slices,
     activation_rules,
+    add_collective,
+    batch_specs,
+    collecting,
     data_only,
+    gather_at,
     make_constrain,
     map_mesh,
     mesh_zeros,
     param_rules,
     place_tensor,
+    region_bytes,
     row_tensor,
 )
 from repro_torch.utils import tree_flatten, tree_map
@@ -188,7 +210,7 @@ class UnitConstrain:
 
     def __call__(self, unit_params, row: int = 0):
         dev = self.mesh.lead(row)
-        return map_mesh(lambda m: m.gather(dev) if isinstance(m, MeshTensor) else m,
+        return map_mesh(lambda m: gather_at(m, (row, 0), dev) if isinstance(m, MeshTensor) else m,
                         unit_params)
 
     def row(self, r: int):
@@ -206,12 +228,10 @@ def make_unit_constrain(cfg: ModelConfig, mesh) -> UnitConstrain:
 
 
 def _check_mesh(mesh) -> RenderMesh:
-    if "pod" in mesh.axis_names:
-        raise ValueError(
-            "steps over a 'pod' mesh wait for make_production_mesh "
-            "(ROADMAP queue 1, item 13 part 4); its specs are ported")
-    if not isinstance(mesh, RenderMesh) or mesh.axis_names != ("data", "model"):
-        raise ValueError(f"the LM steps run over a ('data', 'model') RenderMesh, not {mesh!r}")
+    if not isinstance(mesh, RenderMesh) or mesh.axis_names not in (
+            ("data", "model"), ("pod", "data", "model")):
+        raise ValueError("the LM steps run over a ('data', 'model') or ('pod', 'data', "
+                         f"'model') RenderMesh, not {mesh!r}")
     return mesh
 
 
@@ -242,8 +262,7 @@ def init_opt_state(params, optimizer: str):
     parameter's spec (ZeRO-1), or Adafactor's factored statistics under the
     JAX package's specs."""
     def adam(pm):
-        return mesh_zeros(pm.shape, torch.float32, pm.mesh,
-                          _opt_leaf_specs(pm, "adamw", pm.mesh))
+        return mesh_zeros(pm.shape, torch.float32, pm.mesh, _opt_leaf_specs(pm, "adamw", pm.mesh))
 
     if optimizer == "adamw":
         return AdamWState(mu=map_mesh(adam, params), nu=map_mesh(adam, params))
@@ -312,7 +331,12 @@ def _row_params(params, mesh: RenderMesh, r: int, shared: dict):
         if "units" not in shared:
             shared["units"] = _unbind_units(params["units"], _n_units(params["units"]))
         shared[dev]["units"] = shared["units"]
-    return shared[dev]
+    if not collecting():
+        return shared[dev]
+    # each row receives its gather, shared on one device or not
+    return {k: w if k == "units" else map_mesh(
+                lambda m, g: gather_at(m, (r, 0), whole=g), params[k], w)
+            for k, w in shared[dev].items()}
 
 
 def _n_units(units) -> int:
@@ -336,10 +360,16 @@ def _with_pieces(m: MeshTensor, by_id) -> MeshTensor:
 
 @torch.no_grad()
 def _all_reduce_replicas(grads) -> None:
-    """Replicas of a slice on distinct devices each take the sum of their
-    gradients (in position order, so every replica holds the same bits)."""
+    """Replicas of a slice each take the sum of their gradients (in
+    position order, so every replica on a distinct device holds the same
+    bits): an all-reduce of the slice at each position holding it."""
     for m in _leaves(grads):
-        for reps in m.replicas().values():
+        for region, ps in m.holders().items():
+            if len(ps) < 2:
+                continue
+            for pos in ps:
+                add_collective("all-reduce", pos, region_bytes(region, m.dtype))
+            reps = list({id(m.pieces[p]): m.pieces[p] for p in ps}.values())
             if len(reps) > 1:
                 total = reps[0].clone()
                 for t in reps[1:]:
@@ -373,7 +403,8 @@ def _adamw_zero1_(params, grads, state: AdamWState, step, lr, weight_decay: floa
     """AdamW over ZeRO-1 state: each distinct state shard updates its slice
     of the parameter piece at its position (on that piece's device); then
     each replica of a parameter slice copies in the state slices another
-    replica updated (the all-gather)."""
+    replica updated (the all-gather, at each position receiving a slice
+    it did not update)."""
     scalars = {}
 
     def on(dev):
@@ -397,16 +428,31 @@ def _adamw_zero1_(params, grads, state: AdamWState, step, lr, weight_decay: floa
                          weight_decay=weight_decay)
             updated.add((id(p), sreg))
             owner.setdefault(sreg, (p, preg))
-        for _, preg, p in pm.distinct():
+        for pos in pm.mesh.positions:
+            p, preg, own = pm.pieces[pos], pm.region(pos), mm.region(pos)
             for sreg, (src, src_reg) in owner.items():
-                if _inside(sreg, preg) and (id(p), sreg) not in updated:
+                if not _inside(sreg, preg):
+                    continue
+                if sreg != own:
+                    add_collective("all-gather", pos, region_bytes(sreg, pm.dtype))
+                if (id(p), sreg) not in updated:
                     p[_slices(sreg, preg)].copy_(src[_slices(sreg, src_reg)])
+                    updated.add((id(p), sreg))
 
 
 @torch.no_grad()
-def _scatter_(m: MeshTensor, full: torch.Tensor) -> None:
-    """Write the global tensor ``full`` into every distinct piece of ``m``."""
-    for _, region, t in m.distinct():
+def _scatter_(m: MeshTensor, full: torch.Tensor, src_pos) -> None:
+    """Write the global tensor ``full``, made at position ``src_pos``, into
+    every distinct piece of ``m``: each other position receives its region
+    (an all-gather there)."""
+    done = set()
+    for pos, t in m.pieces.items():
+        region = m.region(pos)
+        if pos != src_pos:
+            add_collective("all-gather", pos, region_bytes(region, m.dtype))
+        if id(t) in done:
+            continue
+        done.add(id(t))
         src = full[_slices(region)]
         if src.data_ptr() != t.data_ptr():
             t.copy_(src)
@@ -419,13 +465,15 @@ def _adafactor_whole_(params, grads, state: AdafactorState, step, lr) -> None:
     arithmetic (``optim/adafactor.py::leaf_update``), and written back to
     every shard of the parameter and of its statistics."""
     def one(pm, gm, s: FactoredLeaf):
-        dev = pm.distinct()[0][2].device
-        whole = FactoredLeaf(*(x.gather(dev) for x in s))
-        new_p, new_s = leaf_update(pm.gather(dev), gm.gather(dev), whole, step, lr=lr)
-        _scatter_(pm, new_p)
+        first, _, lead = pm.distinct()[0]
+        dev = lead.device
+        whole = FactoredLeaf(*(gather_at(x, first, dev) for x in s))
+        new_p, new_s = leaf_update(gather_at(pm, first, dev), gather_at(gm, first, dev), whole,
+                                   step, lr=lr)
+        _scatter_(pm, new_p, first)
         for mt, old, new in zip(s, whole, new_s):
             if new is not old:
-                _scatter_(mt, new)
+                _scatter_(mt, new, first)
 
     for pm, gm, s in zip(_leaves(params), _leaves(grads), _leaves_factored(state.stats),
                          strict=True):
@@ -623,3 +671,101 @@ def make_decode_step(cfg: ModelConfig, mesh=None, batch_shardable: bool = True,
         return row_tensor(mesh, spec, outs), cache
 
     return mesh_serve_step
+
+
+# --------------------------------------------------------------------------
+# a cell's inputs, and its step
+# --------------------------------------------------------------------------
+
+def abstract_params(cfg: ModelConfig, mesh: RenderMesh):
+    """The parameters as :func:`place_params` lays them out, from
+    ``abstract_from_spec``'s shapes and dtypes: a tree of MeshTensors under
+    :func:`param_pspecs`, each piece made (zeros) on its position's device."""
+    spec = build_param_spec(cfg)
+    return _zip_leaves(lambda _, a, s: mesh_zeros(a.shape, a.dtype, mesh, s),
+                       spec, abstract_from_spec(spec), param_pspecs(cfg, mesh))
+
+
+def abstract_opt_state(cfg: ModelConfig, mesh: RenderMesh, optimizer: str, zero1: bool = True):
+    """:func:`init_opt_state` of :func:`abstract_params`: AdamW's float32
+    moments under ZeRO-1, or Adafactor's factored statistics, under the JAX
+    package's specs. ``zero1`` keeps the JAX signature; ZeRO-1 is the
+    port's only layout of AdamW's state, as it is in every JAX step, so
+    ``False`` is refused."""
+    if not zero1:
+        raise ValueError("the port lays AdamW's state out under ZeRO-1 only")
+    return init_opt_state(abstract_params(cfg, mesh), optimizer)
+
+
+def abstract_batch(cfg: ModelConfig, shape: ShapeCell, mesh: RenderMesh):
+    """A cell's global batch as MeshTensors under ``batch_specs`` (the batch
+    axis over the data axes). Token ids and labels are int64, the index
+    dtype torch gathers with, where the JAX package's are int32; patch
+    embeddings and frames are bfloat16, as there."""
+    B, S = shape.global_batch, shape.seq_len
+    specs = batch_specs(cfg, mesh)
+    act = torch.bfloat16
+    if cfg.frontend == "vision_stub":
+        s_text = S - cfg.n_frontend_tokens
+        shapes = {"tokens": ((B, s_text), torch.int64), "labels": ((B, s_text), torch.int64),
+                  "patch_embeds": ((B, cfg.n_frontend_tokens, cfg.d_model), act)}
+    elif cfg.frontend == "audio_stub":
+        shapes = {"frames": ((B, S, cfg.d_model), act), "labels": ((B, S), torch.int64)}
+    else:
+        shapes = {"tokens": ((B, S), torch.int64), "labels": ((B, S), torch.int64)}
+    return {k: mesh_zeros(shp, dt, mesh, specs[k]) for k, (shp, dt) in shapes.items()}
+
+
+def _batch_shardable(shape: ShapeCell, mesh) -> bool:
+    """Whether the cell's batch splits over the mesh's data axes."""
+    dp_size = 1
+    for a in _dp_axes(mesh):
+        dp_size *= mesh.shape[a]
+    return shape.global_batch % dp_size == 0
+
+
+def abstract_cache(cfg: ModelConfig, shape: ShapeCell, mesh: RenderMesh):
+    """The decode cache of a cell as :func:`mesh_cache` lays it out: JAX's
+    cache specs (the batch replicated where it does not split,
+    :func:`_batch_shardable`) with their ``'model'`` entries dropped, each
+    data row's part held whole by its lead device."""
+    return mesh_cache(cfg, mesh, shape.global_batch, shape.seq_len,
+                      _batch_shardable(shape, mesh))
+
+
+def jit_for_cell(cfg: ModelConfig, shape: ShapeCell, mesh: RenderMesh,
+                 optimizer: Optional[str] = None):
+    """(step_fn, kwargs) for one (arch x shape) cell, as the JAX package's
+    function returns them: ``step_fn(**kwargs)`` runs the cell's step over
+    ``mesh`` on the ``abstract_*`` inputs (zeros on the mesh's
+    devices; on ``meta`` the step computes shapes only). Nothing is jitted,
+    compiled or donated, where JAX's returns a jitted function: the name is
+    kept so that a reader finds the counterpart, and the steps update their
+    state in place. Train: :func:`pick_optimizer`'s state under ZeRO-1 and
+    the step number 0; prefill: the batch without labels; decode: tokens,
+    position 0 and the cache, the batch replicated where it does not split
+    over the data axes."""
+    if shape.kind == "train":
+        optimizer = optimizer or pick_optimizer(cfg)
+        step_fn, _ = make_train_step(cfg, mesh, optimizer=optimizer)
+        return step_fn, dict(params=abstract_params(cfg, mesh),
+                             opt_state=abstract_opt_state(cfg, mesh, optimizer),
+                             batch=abstract_batch(cfg, shape, mesh), step=0)
+    if shape.kind == "prefill":
+        batch = abstract_batch(cfg, shape, mesh)
+        batch.pop("labels", None)
+        return make_prefill_step(cfg, mesh), dict(params=abstract_params(cfg, mesh), batch=batch)
+    if shape.kind == "decode":
+        shardable = _batch_shardable(shape, mesh)
+        tokens = mesh_zeros((shape.global_batch,), torch.int64, mesh,
+                            P(_dp_axes(mesh)) if shardable else P(None))
+        return make_decode_step(cfg, mesh, batch_shardable=shardable), dict(
+            params=abstract_params(cfg, mesh), cache=abstract_cache(cfg, shape, mesh),
+            tokens=tokens, pos=0)
+    raise ValueError(shape.kind)
+
+
+def abstract_inputs_for_cell(cfg: ModelConfig, shape: ShapeCell, mesh: RenderMesh,
+                             optimizer: Optional[str] = None):
+    """Back-compat shim: (step_fn, kwargs), as :func:`jit_for_cell`."""
+    return jit_for_cell(cfg, shape, mesh, optimizer)

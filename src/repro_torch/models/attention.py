@@ -14,11 +14,19 @@ plain autograd would keep every block's (B, H, Sq, chunk) float32 tiles.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.models.layers import apply_rope, no_constrain, rope_angles
 
 NEG_INF = -1e30
+
+
+class AttnParams(NamedTuple):
+    """Empty, kept for documentation as in the JAX package: the attention
+    weights are packed in ``lm.py``'s parameter dicts (``wq``, ``wk``,
+    ``wv``, ``wo`` and the optional ``bq``, ``bk``, ``bv``)."""
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int):

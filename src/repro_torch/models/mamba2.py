@@ -191,3 +191,9 @@ def mamba_decode(
     y = y * torch.rsqrt((y * y).mean(-1, keepdim=True) + 1e-6)
     y = (y.to(x.dtype) * p["norm_w"])[:, None, :]
     return y @ p["out_proj"], new_state, new_conv_state
+
+
+def w_full(p, width):
+    """The packed causal-conv weight ``p["conv_w"]`` in float32 (``width``
+    is unused, as in the JAX package)."""
+    return p["conv_w"].float()

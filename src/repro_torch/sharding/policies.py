@@ -11,9 +11,10 @@ The LM rules (``param_rules``, ``activation_rules``, ``make_constrain``,
 ``ValueError`` messages, so any object with those two attributes serves:
 a :class:`RenderMesh` (``('data',)`` or ``('data', 'model')``) or a
 stand-in for the JAX package's ``(pod, data, model)`` production mesh,
-where the ``'pod'`` axis joins data parallelism. Steps over a ``'pod'``
-mesh wait for ``make_production_mesh`` (ROADMAP queue 1, item 13 part 4).
-The five render specs hold the JAX package's values on a ``RenderMesh``.
+where the ``'pod'`` axis joins data parallelism (a ``('pod', 'data',
+'model')`` :class:`RenderMesh` from ``launch/mesh.py::make_production_mesh``,
+whose rows are pod x data). The five render specs hold the JAX package's
+values on a ``RenderMesh``.
 
 :func:`place` stands in for ``jax.device_put(x, NamedSharding(mesh,
 spec))``. One process drives the mesh. A tensor under any spec over
@@ -26,6 +27,11 @@ row: a replicated operand on the row's lead device, a ``ShardedScene``
 under ``scene_shard_pspec`` with shard ``d`` on the row's model column
 ``d``.
 
+:func:`record_collectives` counts, by collective kind and by the position
+that receives them, the bytes the one-process mesh code moves between
+distinct mesh positions: what NCCL would carry to each card of a mesh of
+distinct ones (the dry run's stand-in for the collectives of XLA's HLO).
+
 ``make_constrain`` returns the JAX package's ``with_sharding_constraint``
 hook with its specs (:meth:`Constrain.spec`), but the port realizes no
 tensor-parallel compute over ``'model'``: a data row computes on its lead
@@ -33,7 +39,9 @@ device and the hook returns its tensor unchanged (ROADMAP queue 3).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 import torch
@@ -233,31 +241,50 @@ def _parts(spec, ndim: int) -> Tuple[MeshAxes, ...]:
     return parts
 
 
-def _coord(mesh: RenderMesh, entry: MeshAxes, pos: Tuple[int, int]) -> Tuple[int, int]:
-    """(index, extent) of position ``pos`` along the mesh axes ``entry``
-    (a tuple of axes indexes row-major, as JAX does)."""
-    index, extent = 0, 1
-    for a in (() if entry is None else (entry,) if isinstance(entry, str) else entry):
+def _axes_of(mesh, entry: MeshAxes) -> Tuple[str, ...]:
+    names = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+    for a in names:
         if a not in mesh.axis_names:
             raise ValueError(f"mesh axis {a!r} is not one of {mesh.axis_names}")
-        n = mesh.shape[a]
-        index = index * n + (pos[0] if a == "data" else pos[1])
-        extent *= n
-    return index, extent
+    return names
+
+
+def _coords(sizes, pos) -> Dict[str, int]:
+    """Position ``pos`` = (row, column) along each mesh axis: a row of a
+    pod mesh is pod ``row // data``, data index ``row % data``."""
+    data = sizes.get("data", 1)
+    return {"pod": pos[0] // data, "data": pos[0] % data, "model": pos[1]}
+
+
+def spec_regions(mesh: RenderMesh, spec, shape, positions) -> Dict[tuple, Region]:
+    """Position -> the half-open index range of each axis that it holds of
+    a tensor of ``shape`` under ``spec``, for each of ``positions``."""
+    sizes = mesh.shape
+    dims = []
+    for d, (n, entry) in enumerate(zip(shape, _parts(spec, len(shape)))):
+        names = _axes_of(mesh, entry)
+        extent = math.prod(sizes[a] for a in names)
+        if n % extent:
+            raise ValueError(f"axis {d} of size {n} does not split over {entry!r} "
+                             f"of extent {extent}")
+        dims.append((names, n // extent))
+    out = {}
+    for pos in positions:
+        coords = _coords(sizes, pos)
+        region = []
+        for names, step in dims:
+            index = 0
+            for a in names:
+                index = index * sizes[a] + coords[a]
+            region.append((index * step, (index + 1) * step))
+        out[pos] = tuple(region)
+    return out
 
 
 def spec_region(mesh: RenderMesh, spec, shape, pos) -> Region:
     """The half-open index range of each axis that position ``pos`` holds
     of a tensor of ``shape`` under ``spec``."""
-    out = []
-    for d, (n, entry) in enumerate(zip(shape, _parts(spec, len(shape)))):
-        index, extent = _coord(mesh, entry, pos)
-        if n % extent:
-            raise ValueError(f"axis {d} of size {n} does not split over {entry!r} "
-                             f"of extent {extent}")
-        step = n // extent
-        out.append((index * step, (index + 1) * step))
-    return tuple(out)
+    return spec_regions(mesh, spec, shape, (pos,))[pos]
 
 
 def _slices(region: Region, within: Optional[Region] = None) -> Tuple[slice, ...]:
@@ -304,13 +331,19 @@ class MeshTensor:
                 out.append((pos, self.region(pos), t))
         return out
 
+    def holders(self) -> Dict[Region, list]:
+        """Region -> the positions holding it, row-major."""
+        out: Dict[Region, list] = {}
+        for pos in self.mesh.positions:
+            if pos in self.pieces:
+                out.setdefault(self.region(pos), []).append(pos)
+        return out
+
     def replicas(self) -> Dict[Region, list]:
         """Region -> the distinct tensors holding it (several on distinct
         devices, one on a virtual mesh)."""
-        out: Dict[Region, list] = {}
-        for _, region, t in self.distinct():
-            out.setdefault(region, []).append(t)
-        return out
+        return {region: list({id(self.pieces[p]): self.pieces[p] for p in ps}.values())
+                for region, ps in self.holders().items()}
 
     def position_bytes(self) -> Dict[tuple, int]:
         """Bytes each position holds (a shared tensor counts at each)."""
@@ -369,8 +402,7 @@ def place_tensor(x: torch.Tensor, mesh: RenderMesh, spec) -> MeshTensor:
     distinct device and slice."""
     copies: Dict[tuple, torch.Tensor] = {}
     pieces = {}
-    for pos in mesh.positions:
-        region = spec_region(mesh, spec, x.shape, pos)
+    for pos, region in spec_regions(mesh, spec, x.shape, mesh.positions).items():
         dev = mesh.grid[pos[0]][pos[1]]
         key = (region, dev)
         if key not in copies:
@@ -381,13 +413,12 @@ def place_tensor(x: torch.Tensor, mesh: RenderMesh, spec) -> MeshTensor:
 
 def mesh_zeros(shape, dtype, mesh: RenderMesh, spec, rows_only: bool = False) -> MeshTensor:
     """A zero MeshTensor, each piece made on its own device (no global
-    tensor is ever built). ``rows_only``: held by each data row's lead
-    device only (a decode cache)."""
+    tensor is ever built; on ``meta``, shapes only). ``rows_only``: held by
+    each data row's lead device only (a decode cache)."""
     copies: Dict[tuple, torch.Tensor] = {}
     pieces = {}
     positions = [(r, 0) for r in range(mesh.rows)] if rows_only else mesh.positions
-    for pos in positions:
-        region = spec_region(mesh, spec, shape, pos)
+    for pos, region in spec_regions(mesh, spec, shape, positions).items():
         dev = mesh.grid[pos[0]][pos[1]]
         key = (region, dev)
         if key not in copies:
@@ -405,7 +436,7 @@ def row_tensor(mesh: RenderMesh, spec, rows: Iterable[torch.Tensor]) -> MeshTens
     shape = list(rows[0].shape)
     for d, entry in enumerate(parts):
         if entry is not None:
-            shape[d] *= _coord(mesh, entry, (0, 0))[1]
+            shape[d] *= math.prod(mesh.shape[a] for a in _axes_of(mesh, entry))
     return MeshTensor(shape, rows[0].dtype, mesh, spec,
                       {(r, 0): t for r, t in enumerate(rows)})
 
@@ -493,3 +524,108 @@ def place(tree, mesh: RenderMesh, spec: PartitionSpec):
         else:
             rows.append(to("whole", tree, mesh.lead(r)))
     return tuple(rows)
+
+
+# --------------------------------------------------------------------------
+# collective traffic
+# --------------------------------------------------------------------------
+
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter")
+
+# The open record_collectives() logs, innermost last. A module-level stack,
+# not a context variable: on a card autograd runs the backward (and a remat
+# recompute) on a thread of its own, which must record too.
+_LOGS: list = []
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Within the block, the mesh steps add to the dict this yields ((kind,
+    position) -> bytes, the kinds of :data:`COLLECTIVE_KINDS`) what each
+    mesh position receives from the others, counted by position and not by
+    device: a virtual or ``meta`` mesh copies nothing, and counts what a
+    mesh of distinct cards would carry. A gather to a position receives the
+    regions it does not hold (all-gather), its backward sends their
+    gradients back (reduce-scatter); each position holding a replica of a
+    gradient region takes the region's sum (all-reduce); ZeRO-1's refresh
+    receives the state slices other positions updated (all-gather).
+    Scalars (the loss, the norm) are not counted. :func:`per_device`
+    reduces the log to one card's bytes."""
+    log: Dict[tuple, int] = {}
+    _LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _LOGS.remove(log)
+
+
+def collecting() -> bool:
+    return bool(_LOGS)
+
+
+def add_collective(kind: str, pos, nbytes: int, log: Optional[dict] = None) -> None:
+    """Add ``nbytes`` of ``kind`` received at position ``pos`` to ``log``
+    (by default the innermost open one, if any)."""
+    if log is None:
+        if not _LOGS:
+            return
+        log = _LOGS[-1]
+    if nbytes:
+        log[(kind, pos)] = log.get((kind, pos), 0) + int(nbytes)
+
+
+def per_device(log) -> Dict[str, float]:
+    """Collective bytes by kind at the position of ``log`` that receives
+    the most in all (the first such in row-major order): what one card of
+    the mesh carries. Keys of ``log`` that are not (kind, position) pairs
+    are ignored."""
+    totals: Dict[tuple, float] = {}
+    for key, n in log.items():
+        if isinstance(key, tuple):
+            totals[key[1]] = totals.get(key[1], 0) + n
+    top = max(sorted(totals), key=totals.get, default=None)
+    return {k: log.get((k, top), 0) for k in COLLECTIVE_KINDS}
+
+
+def region_bytes(region: Region, dtype: torch.dtype) -> int:
+    return math.prod(hi - lo for lo, hi in region) * dtype.itemsize
+
+
+def held_elsewhere(m: MeshTensor, pos) -> int:
+    """Bytes of the regions of ``m`` that position ``pos`` does not hold:
+    what a gather of ``m`` to ``pos`` receives."""
+    own = m.region(pos) if pos in m.pieces else None
+    regions = {m.region(p) for p in m.pieces}
+    return sum(region_bytes(r, m.dtype) for r in regions if r != own)
+
+
+class _ReduceScatterCount(torch.autograd.Function):
+    """The identity; its backward adds ``nbytes`` of reduce-scatter at
+    ``pos`` to the log that was open at the forward (the gradient of a
+    gather going back to the shards it came from)."""
+
+    @staticmethod
+    def forward(ctx, x, log, pos, nbytes):
+        ctx.log, ctx.pos, ctx.nbytes = log, pos, nbytes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        add_collective("reduce-scatter", ctx.pos, ctx.nbytes, ctx.log)
+        return g, None, None, None
+
+
+def gather_at(m: MeshTensor, pos, device=None, whole: Optional[torch.Tensor] = None):
+    """``m.gather(device)`` for mesh position ``pos`` (``whole``: that
+    gather made already, shared by positions on one device), counted inside
+    :func:`record_collectives`: the regions ``pos`` does not hold as an
+    all-gather at ``pos``, and where the result takes a gradient, the same
+    bytes as a reduce-scatter when the backward reaches it (once per
+    forward gather, however often a remat recompute gathers again)."""
+    out = m.gather(device) if whole is None else whole
+    nbytes = held_elsewhere(m, pos) if _LOGS else 0
+    if nbytes:
+        add_collective("all-gather", pos, nbytes)
+        if out.requires_grad:
+            out = _ReduceScatterCount.apply(out, _LOGS[-1], pos, nbytes)
+    return out

@@ -34,6 +34,11 @@ def wide_count_sum(values: torch.Tensor) -> torch.Tensor:
     return torch.sum(values.to(torch.int64))
 
 
+def pytree_count(tree) -> int:
+    """Total number of elements of the tensors in ``tree``."""
+    return sum(t.numel() for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor))
+
+
 def pytree_bytes(tree) -> int:
     """Total bytes of the tensors in ``tree``: a tensor, or a dataclass,
     mapping, list or tuple of them (nested), at their declared dtypes."""

@@ -14,7 +14,12 @@ and counters exactly at these sizes; the fused raster kernel gives the tile
 kernel's rgb and counters bit for bit over the compacted lists of the same
 table (all four rows without early exit); the kernel backend matches the
 reference backend the same way; the engine handle's batch and futures
-paths are bitwise equal to its single render.
+paths are bitwise equal to its single render. Against the dense oracles of
+``kernels/ref.py`` (run on the host): BGM words bit for bit, images within
+1e-4 with NaN in the same places (a kernel stops a tile whose pixels all
+fall below T = 1e-4 and keeps its T, where the oracle multiplies on),
+sorted keys equal (rows with NaN excepted: the network places NaN by its
+own order) and each row's (key, payload) pairs equal as a multiset.
 """
 import dataclasses
 import functools
@@ -29,7 +34,7 @@ from repro_torch.core import camera, pipeline
 from repro_torch.core.bitmask import GroupBitmasks, compact_tiles, generate_bitmasks
 from repro_torch.core.gaussians import random_scene
 from repro_torch.core.grouping import GridSpec
-from repro_torch.kernels import build, ops
+from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.bitmask_gen import bitmask_kernel, bitmask_plain, edge_case_block
 from repro_torch.kernels.bitonic_sort import (
     bitonic_sort_kernel,
@@ -427,6 +432,55 @@ def test_bitonic_kernel_on_edge_case_rows(cuda_device, K):
     got = bitonic_sort_kernel(keys.to(cuda_device), payload.to(cuda_device))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+
+
+ORACLE_IMAGE_TOL = 1e-4
+
+
+def _pairs(keys, payload):
+    """Each row's (payload, key) bit patterns, sorted: the row as a multiset."""
+    kb = keys.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    vb = payload.contiguous().view(torch.int32).to(torch.int64)
+    return torch.sort((vb << 32) | kb, dim=-1).values
+
+
+def test_kernels_hold_to_their_dense_oracles(cuda_device):
+    """The four kernels on the card against kernels/ref.py on the host, on
+    the seeded frame's tables and the package's edge-case builders."""
+    _, _, grid, _, feat, masks = _case(gf=4)
+    origins, in_img = ops.group_origins(grid), ops.tiles_in_image(grid)
+    dev = cuda_device
+    for method in ("aabb", "obb", "ellipse"):
+        got = bitmask_kernel(feat.to(dev), origins.to(dev), in_img.to(dev), grid.tile, grid.gf,
+                             method)
+        assert torch.equal(got.cpu(), ref.ref_bitmask(feat, origins, in_img, grid.tile, grid.gf,
+                                                      method)), method
+        block = edge_case_block(3, 8, torch.Generator().manual_seed(7))
+        got = bitmask_kernel(*(x.to(dev) for x in block), 8, 3, method)
+        assert torch.equal(got.cpu(), ref.ref_bitmask(*block, 8, 3, method)), method
+
+    def close(got, want):
+        assert torch.equal(got.isnan(), want.isnan())
+        assert float((got - want).abs().nan_to_num(0.0).max()) <= ORACLE_IMAGE_TOL
+
+    out, _ = raster_group_fused_kernel(feat.to(dev), masks.to(dev), origins.to(dev), grid.tile,
+                                       grid.gf, chunk=32)
+    close(out.cpu(), ref.ref_raster_group_fused(feat, masks, origins, grid.tile, grid.gf))
+    for tile_px, chunk in ((8, 32), (16, TILE_WINDOW), (12, 2048)):
+        f_e, o_e = edge_case_lists(tile_px, chunk, torch.Generator().manual_seed(3))
+        out, _ = raster_tile_kernel(f_e.to(dev), o_e.to(dev), tile_px, chunk)
+        close(out.cpu(), ref.ref_raster_tiles(f_e, o_e, tile_px))
+        ones = torch.ones(f_e.shape[0], f_e.shape[2], dtype=torch.int32)
+        out, _ = raster_group_fused_kernel(f_e.to(dev), ones.to(dev), o_e.to(dev), tile_px, 1,
+                                           chunk)
+        close(out.cpu(), ref.ref_raster_group_fused(f_e, ones, o_e, tile_px, 1))
+    for keys, payload in (_sort_case(4, 8192, seed=1), edge_case_rows(1024, torch.Generator()
+                                                                      .manual_seed(10))):
+        got_k, got_v = (x.cpu() for x in bitonic_sort_kernel(keys.to(dev), payload.to(dev)))
+        want_k, want_v = ref.ref_sort(keys, payload)
+        clean = ~keys.isnan().any(-1)
+        assert torch.equal(got_k[clean], want_k[clean])
+        assert torch.equal(_pairs(got_k, got_v), _pairs(want_k, want_v))
 
 
 def test_bitonic_kernel_refuses_bad_inputs(cuda_device):

@@ -40,7 +40,7 @@ from repro.sharding import policies as jpolicies
 from repro_torch import configs
 from repro_torch.data import TokenStream, make_batch
 from repro_torch.launch import steps
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import RenderMesh, make_host_mesh
 from repro_torch.launch.train import device_batch
 from repro_torch.models import build_cache_spec, build_param_spec, decode_step, forward
 from repro_torch.models import init_cache
@@ -306,9 +306,11 @@ def leaf_close(port, ref, what):
 
 
 def run_two_steps(cfg, shape, optimizer="adamw", replicas=False):
-    """Two steps over a virtual CPU mesh against one device; ``replicas``
-    gives each position its own copy (:func:`per_position`)."""
-    mesh = make_host_mesh(*shape, devices=["cpu"] * (shape[0] * shape[1]))
+    """Two steps over a virtual CPU mesh (of ``shape``, or the mesh given)
+    against one device; ``replicas`` gives each position its own copy
+    (:func:`per_position`)."""
+    mesh = (shape if isinstance(shape, RenderMesh)
+            else make_host_mesh(*shape, devices=["cpu"] * (shape[0] * shape[1])))
     params = smoke_params(cfg)
     placed = steps.place_params(cfg, mesh, params)
     mopt = steps.init_opt_state(placed, optimizer)
@@ -410,8 +412,14 @@ def test_remat_gathers_each_unit_again_in_the_backward(monkeypatch):
 @pytest.mark.parametrize("arch", STEP_ARCHS)
 def test_mesh_prefill_and_decode_match_one_device(arch, shape):
     cfg = dataclasses.replace(configs.get_smoke_config(arch), force_fsdp=True)
+    prefill_and_decode_match_one_device(
+        cfg, make_host_mesh(*shape, devices=["cpu"] * (shape[0] * shape[1])))
+
+
+def prefill_and_decode_match_one_device(cfg, mesh):
+    """The mesh prefill step and four decode steps (the batch split over
+    the data rows, and not) against one device's, at ``TOL``."""
     params = smoke_params(cfg)
-    mesh = make_host_mesh(*shape, devices=["cpu"] * (shape[0] * shape[1]))
     placed = steps.place_params(cfg, mesh, params)
     b = device_batch(make_batch(TokenStream(cfg.vocab, 4, 16, seed=2), 0), "cpu")
     with torch.inference_mode():
@@ -472,7 +480,7 @@ def test_sharded_loss_on_jax_config_matches_jax_single_device():
 
 def test_mesh_step_checks():
     cfg = configs.get_smoke_config("granite-3-2b")
-    with pytest.raises(ValueError, match="'pod' mesh"):
+    with pytest.raises(ValueError, match="RenderMesh"):
         steps.make_train_step(cfg, StandIn(MESHES["2x16x16"]))
     with pytest.raises(ValueError, match="RenderMesh"):
         steps.make_prefill_step(cfg, StandIn(MESHES["2x2"]))

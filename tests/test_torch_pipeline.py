@@ -319,6 +319,9 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.optim.grad_utils, repro_torch.optim.schedule\n"
         "import repro_torch.launch.steps, repro_torch.launch.train\n"
         "import repro_torch.examples.train_lm\n"
+        "import repro_torch.kernels.ref, repro_torch.launch.shapes, repro_torch.launch.roofline\n"
+        "import repro_torch.launch.report, repro_torch.launch.meminspect\n"
+        "import repro_torch.launch.dryrun\n"
         "from repro_torch.configs import ARCHS, get_config, get_smoke_config\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
