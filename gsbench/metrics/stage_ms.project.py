@@ -1,0 +1,16 @@
+"""Mean milliseconds a frame spends in the project stage: the program's fenced
+``stage/project`` spans (``RenderConfig(timing=True)``, core/stages.py
+TimedBackend) of the timed frames, summed and divided by the frames (a
+frame that skips the stage adds nothing)."""
+
+LAYER = "project (core/projection.py)"
+UNIT = "ms"
+MOVES = "fps"
+STAGE = "project"
+
+
+def read(trace):
+    frames = trace.frames_b
+    if not frames:
+        return None
+    return 1e3 * sum(f["spans"].get(STAGE, 0.0) for f in frames) / len(frames)
